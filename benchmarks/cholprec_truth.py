@@ -1,21 +1,19 @@
-"""Arbitrate chol-pullback precision modes against an f64 ground truth (r5).
+"""Score inducing-input gradients against a float64 ground truth.
 
-The r4 precision gate (CHOLPREC_GRADERR_r04.json) judged each mode by its
-similarity to the dense-HIGHEST on-chip oracle AT MODEL INIT.  r5 found
-that criterion is broken at init: with the whitened init (q_mu = 0,
-q_sqrt = I) the marginals are exactly (0, Knn) — independent of Z — so
-the TRUE Z-gradient is ZERO (measured |truth|max ~1e-19 in f64) and every
-f32 mode's Z-grad, including HIGHEST, is pure cancellation noise with
-~zero correlation to truth.  HIGH "agreeing" with HIGHEST to 1.3e-3 was
-agreement of noise (shared arithmetic), not accuracy.
-
-The honest protocol, implemented here: perturb the variational state to a
+Judging gradient precision by agreement with a HIGHEST-precision run AT
+MODEL INIT is void: with the whitened init (q_mu = 0, q_sqrt = I) the
+marginals are exactly (0, Knn) — independent of Z — so the TRUE
+Z-gradient is zero and every float32 mode's Z-gradient is pure
+cancellation noise.  The protocol here: perturb the variational state to a
 trained-like point (identical f64 values cast per arm), compute the
-Z-gradients once in CPU float64 (the truth) and once per mode on-chip,
-and report relative error + correlation vs truth.
+Z-gradients once in float64 (the truth) and once per precision mode on the
+device, and report relative error and correlation vs the truth.
 
-Inputs are the .npz files produced by the two capture scripts (see
---truth/--tpu); emits one JSON line + optional --out.
+Inputs are .npz captures: ``--truth`` holds gZp/gZa (pred/assign layer,
+f64); ``--device`` holds <mode>_p / <mode>_a per precision mode; the
+optional ``--cpu32`` holds an exact-f32 CPU capture with identical draws,
+which separates device matmul arithmetic from the dtype of the MC draws.
+Emits one JSON line + optional --out.
 """
 from __future__ import annotations
 
@@ -28,19 +26,17 @@ import numpy as np
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--truth", default="/tmp/zgrad_f64_pert.npz")
-    p.add_argument("--tpu", default="/tmp/zgrad_tpu_pert.npz")
-    p.add_argument("--cpu32", default="/tmp/zgrad_cpu32_pert.npz",
+    p.add_argument("--truth", required=True)
+    p.add_argument("--device", required=True)
+    p.add_argument("--cpu32", default=None,
                    help="optional exact-f32 CPU capture with draws "
-                        "identical to the TPU arms (isolates MXU "
-                        "arithmetic from the dtype of the MC draws)")
+                        "identical to the device arms")
     p.add_argument("--out", default=None)
     args = p.parse_args()
 
-    import os
     t = np.load(args.truth)
-    g = np.load(args.tpu)
-    c32 = np.load(args.cpu32) if os.path.exists(args.cpu32) else None
+    g = np.load(args.device)
+    c32 = np.load(args.cpu32) if args.cpu32 else None
     modes = sorted({k.rsplit("_", 1)[0] for k in g.files})
     res = {}
     for layer, suf in (("pred", "p"), ("assign", "a")):
@@ -74,24 +70,9 @@ def main():
             f"corr={row[m]['corr_vs_f64']:.4f}" for m in modes),
             file=sys.stderr)
 
-    out = {"metric": "chol_pullback_precision_vs_f64_truth",
-           "conclusions": [
-               "at a trained-like state the structured banded pullback "
-               "matches the dense HIGH/HIGHEST class exactly (pred-layer "
-               "err ~0.43 vs truth, ~0.41 vs exact-f32 CPU with identical "
-               "draws; corr 0.904/0.938) — ADOPTED as the TPU default",
-               "bf16 (default) stays buried on the honest criterion: err "
-               "2.1 / corr 0.37-0.38 — 5x worse than every other mode",
-               "the r4 init-state criterion was void: the whitened init "
-               "makes the true Z-gradient exactly zero, so all f32 modes "
-               "were pure cancellation noise there",
-               "even HIGHEST carries ~0.44 err vs exact-f32 CPU on this "
-               "cancellation-heavy chain — bf16-pass MXU arithmetic has "
-               "a real floor here; exact Z-grads need f64"],
-           "protocol": "perturbed variational state (q_mu ~0.3 N, q_sqrt "
-                       "= 0.9 I + 0.05 tril N, identical f64 values cast "
-                       "per arm), M=4096 batch=2048, CPU f64 truth vs "
-                       "on-chip modes",
+    out = {"metric": "z_grad_precision_vs_f64_truth",
+           "protocol": "perturbed variational state (identical f64 "
+                       "values cast per arm); f64 truth vs device modes",
            "layers": res}
     line = json.dumps(out)
     print(line)

@@ -64,7 +64,7 @@ def main():
     Xj, Yj = jnp.asarray(X, svgp.Z.dtype), jnp.asarray(Y, svgp.Z.dtype)
     print_summary(model)
     # Data threaded through the jitted objective as arguments (never closed
-    # over: a closure-constant device array degrades TPU dispatch).
+    # over, which would bake it into the program as constants).
     model, result = run_scipy(model, lambda m, X_, Y_: -m.elbo(X_, Y_),
                               data=(Xj, Yj), maxiter=args.iters, verbose=True)
     print_summary(model)

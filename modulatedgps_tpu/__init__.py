@@ -1,6 +1,6 @@
-"""modulatedgps_tpu — a TPU-native mixture-of-Gaussian-processes engine.
+"""modulatedgps_tpu — a mixture-of-Gaussian-processes engine in JAX.
 
-A from-scratch JAX/XLA/Pallas/pjit rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 LouieMiddle/ModulatedGPs (data association with mixtures of sparse
 variational GPs).  See SURVEY.md at the repo root for the component map.
 """

@@ -1,10 +1,9 @@
 """Global numerics configuration.
 
 The reference inherits gpflow's config (float64 default, jitter 1e-6; see
-reference MixtureGPs/models.py:16-17).  On TPU the native matmul path is
-float32/bfloat16, so the default dtype here follows JAX's x64 flag: tests
-enable x64 on CPU for parity with float64 references, while TPU runs use
-float32 with a float64-compatible jitter policy.
+reference MixtureGPs/models.py:16-17).  The default dtype here follows
+JAX's x64 flag: tests enable x64 on CPU for parity with float64
+references, while accelerator runs use float32 with a jitter floor.
 """
 from __future__ import annotations
 
@@ -27,13 +26,13 @@ __all__ = [
 @dataclasses.dataclass
 class _Config:
     # gpflow default_jitter() == 1e-6 (reference MixtureGPs/models.py:17);
-    # that value assumes float64.  float32 (the TPU native path) needs a
+    # that value assumes float64.  float32 (the accelerator path) needs a
     # larger floor or chol(Kuu) goes NaN at M ≳ few hundred — SURVEY.md §7.3.
     jitter: float = 1e-6
     jitter_f32: float = 1e-4
     # If None, resolve from jax_enable_x64 at call time.
     float_override: jnp.dtype | None = None
-    # Ablation probe (benchmarks/fp32_ablation.py arm f64_ftz): flush
+    # Ablation probe (the float32 ablation study's arm f64_ftz): flush
     # Gumbel-softmax weights below this threshold to exact zero, mimicking
     # fp32's flush-to-zero inside an otherwise-f64 run.  The probe isolates
     # whether the fp32 convergence gap is the sub-1e-38 gradient trickle
@@ -54,7 +53,7 @@ def set_w_flush_min(value: float | None) -> None:
 
 
 def default_float() -> jnp.dtype:
-    """float64 when x64 is enabled (CPU parity mode), else float32 (TPU)."""
+    """float64 when x64 is enabled (CPU parity mode), else float32."""
     if _CONFIG.float_override is not None:
         return _CONFIG.float_override
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
@@ -73,8 +72,8 @@ def set_default_jitter(value: float, *, f32_floor: float | None = None) -> None:
     max(value, jitter_f32) unless ``f32_floor`` is also given — the floor
     exists because f32 chol(Kuu) goes NaN at M >~ few hundred with 1e-6,
     but SMALL-M f32 models can legitimately run below it (measured: the
-    1e-4 floor, not the f32 dtype, is what degrades flagship convergence —
-    FP32_ABLATION_r03.json)."""
+    1e-4 floor, not the f32 dtype, is what degrades flagship convergence
+    in the float32 ablation study)."""
     _CONFIG.jitter = float(value)
     if f32_floor is not None:
         _CONFIG.jitter_f32 = float(f32_floor)

@@ -5,7 +5,7 @@ The reference builds Dataset.shuffle(N, seed).batch(B).repeat()
 every epoch.  This iterator reproduces that: per-epoch permutation from a
 seeded Generator, fixed-size batches (the trailing remainder batch is
 dropped so every step has a static shape — XLA recompiles on shape change,
-so ragged tail batches are a TPU anti-pattern).
+so ragged tail batches would recompile the step).
 
 Native path (default when built — make -C native): the row gathers run in
 the C++ engine while the permutation stays numpy-seeded, so the batch

@@ -2,19 +2,21 @@
 
 Parity surface: gpflow's ``SVGP.posterior(PrecomputeCacheType.TENSOR)`` as
 subclassed by the reference (reference MixtureGPs/models.py:147-160).  All
-X-independent linear algebra is folded into cached tensors once; each
-prediction batch then costs one kernel build and K MXU matmuls — no
-Cholesky, no solves:
+X-independent linear algebra — the Cholesky factor's inverse and the
+variational state folded through it — is cached once; each prediction
+batch then costs one kernel build and matmuls, no Cholesky and no solves:
 
-  whitened:   fmean = Kxz @ alpha,          alpha = L^-T q_mu        [M, K]
-              fvar_k = Kdiag + rowsum((Kxz @ Q_k) * Kxz)
-              Q_k = L^-T (S_k S_k^T - I) L^-1                        [K, M, M]
-  unwhitened: same with alpha = K_zz^-1 q_mu and
-              Q_k = K_zz^-1 (S_k S_k^T - K_zz) K_zz^-1
+  a      = Linv Kzx                                   [M, N]
+  fmean  = a^T m                                      [N, K]
+  fvar_k = Kdiag - colsum(a^2) + rowsum((a^T R_k)^2)
+  whitened:   m = q_mu,         R_k = S_k
+  unwhitened: m = Linv q_mu,    R_k = Linv S_k
 
-This is the deployment-serving analog of the training-path conditional
-(ops/conditionals.py), which stays Cholesky-based for stability under
-changing parameters.
+This is the training-path conditional (ops/conditionals.py) with its
+factorization cached.  The variance is kept in this feature form, not
+folded into one [K, M, M] matrix Linv^T (S S^T - I) Linv: that matrix has
+entries ~1/jitter whose quadratic forms cancel down to O(1) variances, and
+loses them at reduced matmul precision.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.conditionals import expand_independent_outputs
-from ..ops.linalg import cholesky, triangular_inverse
-from ..params import Module, static_field
+from ..ops.linalg import INVERSE_PRECISION, cholesky, triangular_inverse
+from ..params import Module
 from ..ops.kernels import Kernel
 
 __all__ = ["PrecomputedPosterior", "precompute_posterior", "precompute_smgp"]
@@ -32,8 +34,9 @@ __all__ = ["PrecomputedPosterior", "precompute_posterior", "precompute_smgp"]
 class PrecomputedPosterior(Module):
     kernel: Kernel
     Z: jax.Array           # [M, D]
-    alpha: jax.Array       # [M, K]
-    Q: jax.Array           # [K, M, M]
+    Linv: jax.Array        # [M, M]  inverse Cholesky factor of K_zz
+    m: jax.Array           # [M, K]
+    R: jax.Array           # [K, M, M]
     mean_function: object = None
 
     def predict_f(self, Xnew: jax.Array, *, full_cov: bool = False,
@@ -51,45 +54,37 @@ class PrecomputedPosterior(Module):
                 "use SVGP.predict_f(full_cov=True)")
         Kxz = self.kernel.K(Xnew, self.Z)                 # [..., N, M]
         Kdiag = self.kernel.K_diag(Xnew)                  # [..., N]
-        fmean = jnp.matmul(Kxz, self.alpha,
-                           preferred_element_type=Kxz.dtype)
+        # a^T = Kxz Linv^T: the one product with the explicit inverse.
+        aT = jnp.matmul(Kxz, self.Linv.T, precision=INVERSE_PRECISION,
+                        preferred_element_type=Kxz.dtype)  # [..., N, M]
+        fmean = jnp.matmul(aT, self.m, preferred_element_type=aT.dtype)
         if self.mean_function is not None:
             fmean = fmean + self.mean_function(Xnew)
-        # [..., N, K]: quadratic forms k_n^T Q_k k_n via batched matmul
-        KQ = jnp.einsum("kmp,...np->...nkm", self.Q, Kxz)
-        quad = jnp.sum(KQ * Kxz[..., None, :], axis=-1)   # [..., N, K]
-        fvar = jnp.maximum(Kdiag[..., None] + quad, 1e-12)
+        B = jnp.einsum("...nm,kmp->...nkp", aT, self.R)   # [..., N, K, M]
+        fvar = (Kdiag - jnp.sum(jnp.square(aT), axis=-1))[..., None] \
+            + jnp.sum(jnp.square(B), axis=-1)             # [..., N, K]
+        fvar = jnp.maximum(fvar, 1e-12)
         return fmean, expand_independent_outputs(fvar, False, full_output_cov)
 
 
 def precompute_posterior(svgp) -> PrecomputedPosterior:
     """Fold an SVGP's variational state into a PrecomputedPosterior."""
-    Kmm = svgp.kuu()
-    L = cholesky(Kmm)
-    Linv = triangular_inverse(L)                          # [M, M]
+    Linv = triangular_inverse(cholesky(svgp.kuu()))      # [M, M]
     q_mu = svgp.q_mu.value                                # [M, K]
     q_sqrt = svgp.q_sqrt.value
-    M, K = q_mu.shape
     if q_sqrt.ndim == 2:                                  # diag std-devs
         S = jax.vmap(jnp.diag, in_axes=1)(q_sqrt)         # [K, M, M]
     else:
         S = jnp.tril(q_sqrt)
-    eye = jnp.eye(M, dtype=q_mu.dtype)
     if svgp.whiten:
-        alpha = Linv.T @ q_mu
-        SSt = jnp.matmul(S, jnp.swapaxes(S, -1, -2),
-                         preferred_element_type=S.dtype)  # [K, M, M]
-        inner = SSt - eye
+        m, R = q_mu, S
     else:
-        # Sandwich through L^-1 (never form K_zz^-1 explicitly):
-        # K^-1 (S S^T - K) K^-1 = L^-T ((L^-1 S)(L^-1 S)^T - I) L^-1
-        alpha = Linv.T @ (Linv @ q_mu)
-        LS = jnp.matmul(Linv[None], S, preferred_element_type=S.dtype)
-        inner = jnp.matmul(LS, jnp.swapaxes(LS, -1, -2),
-                           preferred_element_type=S.dtype) - eye
-    Q = jnp.einsum("pm,kpq,qn->kmn", Linv, inner, Linv)
+        # K^-1 k = Linv^T a, so the mean weights and the sqrt-covariance
+        # pass through Linv once (never forming K_zz^-1 explicitly).
+        m = jnp.matmul(Linv, q_mu, precision=INVERSE_PRECISION)
+        R = jnp.matmul(Linv[None], S, precision=INVERSE_PRECISION)
     return PrecomputedPosterior(kernel=svgp.kernel, Z=svgp.Z.value,
-                                alpha=alpha, Q=Q,
+                                Linv=Linv, m=m, R=R,
                                 mean_function=svgp.mean_function)
 
 

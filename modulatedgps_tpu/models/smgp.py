@@ -11,7 +11,7 @@ stochastic ELBO is
 
 (reference models.py:63-79).
 
-TPU-first restructuring (same math, far fewer FLOPs): the reference tiles
+Restructured for the accelerator (same math, far fewer FLOPs): the reference tiles
 X to [S, N, D] and recomputes the *identical* GP conditional S times
 (models.py:35-36, 56, 64).  Since every sample row is the same X, the
 conditional and the variational expectations are computed ONCE on [N, D];
@@ -66,8 +66,8 @@ class SMGP(SGP):
     # Rationale: at tau=1e-2 the exact gradient through non-dominant
     # experts underflows fp32 (logit gap > ~0.88 ⇒ weights < 1e-38 flush
     # to zero; f64 keeps a trickle down to gap ~7.5 that Adam's
-    # normalization amplifies into real updates) — see
-    # benchmarks/fp32_ablation.py.  None = exact gradients (default).
+    # normalization amplifies into real updates).  Measured
+    # catastrophically biased; None = exact gradients (default).
     st_backward_tau: float = static_field(default=None)
 
     # -- assignment weights ------------------------------------------------
@@ -108,10 +108,9 @@ class SMGP(SGP):
     def _marginals(self, X):
         """((fmu, fvar), (amu, avar)) for both layers.
 
-        Kept as two separate conditional chains on purpose: stacking them
-        into one batched chol/solve was measured SLOWER on v5e (the stack
-        copies of Kmn/q_sqrt cost more than the batched Cholesky saves —
-        XLA already overlaps the two independent chains).
+        Kept as two separate conditional chains: stacking them into one
+        batched chol/solve would copy Kmn and q_sqrt into the stack, and
+        XLA already overlaps the two independent chains.
         """
         return (self.pred_layer.predict_f(X),
                 self.assign_layer.predict_f(X))
@@ -123,7 +122,7 @@ class SMGP(SGP):
         if self.st_backward_tau is not None:
             # Forward value: the exact tau=temperature sample.  Gradient:
             # through a softer softmax that does not underflow fp32 (see
-            # the field docstring / benchmarks/fp32_ablation.py).
+            # the field comment).
             tb = jnp.asarray(self.st_backward_tau, log_assign.dtype)
             W_soft = jax.nn.softmax((log_assign + g) / tb, axis=-1)
             W = W_soft + jax.lax.stop_gradient(W - W_soft)

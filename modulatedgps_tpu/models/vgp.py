@@ -7,8 +7,8 @@ trained with the Scipy optimizer).  Unlike SVGP there are no inducing
 points: q(v) = N(q_mu, q_sqrt q_sqrtT) lives at the N training inputs in
 whitened space, f = L v with L = chol(K(X,X) + jitter I).
 
-TPU notes: the training-point marginals need no solves at all — fmean =
-L q_mu and fvar = rowsum((L q_sqrt)^2) are two batched matmuls (MXU), and
+The training-point marginals need no solves at all — fmean = L q_mu and
+fvar = rowsum((L q_sqrt)^2) are two batched matmuls, and
 the single N x N Cholesky is shared between the ELBO and `predict_f`.
 """
 from __future__ import annotations

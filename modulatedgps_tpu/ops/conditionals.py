@@ -17,9 +17,9 @@ q_mu [M, K], q_sqrt [K, M, M] lower-triangular (or [M, K] diagonal).
 Returns ([N, K], [N, K]) for full_cov=False or ([N, K], [K, N, N]) for
 full_cov=True.
 
-TPU notes: everything here is batched matmul (MXU) plus triangular solves;
-K latents are a leading batch axis, never a Python loop.  Float32 inputs use
-float32 accumulation via preferred_element_type.
+Everything here is batched matmul plus triangular solves; K latents are a
+leading batch axis, never a Python loop.  Float32 inputs use float32
+accumulation via preferred_element_type.
 """
 from __future__ import annotations
 
@@ -65,11 +65,8 @@ def base_conditional(Kmn: jax.Array, Kmm: jax.Array, Knn: jax.Array,
     defensive jnp.tril — one fewer full [K, M, M] pass forward and one
     fewer select backward."""
     if white:
-        # Fused chol -> trinv -> matmul with the composite solve pullback
-        # (linalg.whiten_solve) — on the routed large-M hot path this
-        # deletes the trinv backward's two HIGH M^3 matmuls and the chol
-        # pullback's trinv recompute; elsewhere it is exactly the old
-        # cholesky + solve_lower composition.
+        # chol -> solve with one composite pullback in the fast-solves
+        # form (linalg.whiten_solve).
         A = whiten_solve(Kmm, Kmn)
         return _conditional_tail(A, None, Knn, q_mu, q_sqrt=q_sqrt,
                                  full_cov=full_cov, white=True,
@@ -115,49 +112,16 @@ def _conditional_tail(A, Lm, Knn, q_mu, *, q_sqrt, full_cov, white,
         if q_sqrt.ndim == 2:       # diagonal parameterization [M, K]
             B = q_sqrt.T[:, None, :] * jnp.swapaxes(A, -1, -2)[None]  # [K, N, M]
         elif q_sqrt.ndim == 3:     # lower-triangular [K, M, M]
-            # One dense batched matmul beats block-triangular XLA-level
-            # decompositions here (measured on v5e at M=1024, N=8192, K=8):
-            # splitting the contraction outside the kernel saves 0.56x the
-            # FLOPs but forces each partial through HBM, while the dense
-            # dot keeps its accumulators in VMEM.
-            #
             # Computed as B = A^T L (== (L^T A)^T) rather than L^T A: this
             # orientation contracts L on its STANDARD dot dims in the
             # forward AND in both backward dots (dL = A dB, dA^T = dB L^T),
             # so XLA keeps q_sqrt — and its Adam moments, which follow the
-            # gradient's layout — in their natural row-major layout.  The
-            # L^T A form forced transposing {1,2,0} relayout copies of the
-            # [K, M, M] parameter, gradient, and both moments on every
-            # train step (~3.5M cycles each at M=4096 in the HLO cost
-            # model; measured in the optimized train-step dump).
+            # gradient's layout — in their natural row-major layout instead
+            # of adding transposing relayout copies of the [K, M, M]
+            # parameter, gradient and both moments to every train step.
             L = q_sqrt if assume_tril else jnp.tril(q_sqrt)
-            from .pallas_tril import (atl_matmul, atl_sq_colsum,
-                                      route as _tril_route, sq_fused)
-            if _tril_route(A, L):
-                # Tril-blocked Pallas kernels (fwd + both grad matmuls):
-                # half of the dense contraction multiplies tril's
-                # structural zeros — at the north-star shape this family
-                # is 13.2 of the step's 16.6 TFLOP (STEP_ATTRIB_r04).
-                if not full_cov and sq_fused():
-                    # Fused square-colsum variant: B held bf16, cotangent
-                    # scaling inside the gradient kernels (~2.7 GB less
-                    # HBM traffic per step at the north-star shape).
-                    # NUMERICS: unlike atl_matmul (f32-accumulated B, bit-
-                    # identical to the dense path), holding B in bf16 puts
-                    # ~bf16-class (~0.4%) relative error into the q_sqrt
-                    # variance term.  Downstream consumers take sqrt/log of
-                    # fvar, so clamp at a tiny positive floor — the prior
-                    # diag term Knn - sum(A^2) can sit near zero and a
-                    # relative wobble must not push the total negative.
-                    extra = atl_sq_colsum(A, L)                  # [K, N]
-                    fvar = fvar[None, :] + extra
-                    fvar = jnp.maximum(fvar, jnp.asarray(1e-12, dtype))
-                    fvar = jnp.swapaxes(fvar, -1, -2)            # [N, K]
-                    return fmean, fvar
-                B = atl_matmul(A, L)                             # [K, N, M]
-            else:
-                B = jnp.matmul(jnp.swapaxes(A, -1, -2)[None], L,
-                               preferred_element_type=dtype)     # [K, N, M]
+            B = jnp.matmul(jnp.swapaxes(A, -1, -2)[None], L,
+                           preferred_element_type=dtype)         # [K, N, M]
         else:
             raise ValueError(f"q_sqrt must be rank 2 or 3, got {q_sqrt.ndim}")
         if full_cov:

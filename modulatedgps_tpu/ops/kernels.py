@@ -1,17 +1,14 @@
-"""Stationary covariance functions, TPU-first.
+"""Stationary covariance functions.
 
 Rebuilds the gpflow kernel surface the reference uses (SquaredExponential at
 demos/demo_tf2.py:37-38; Matern32/White only in the from_online sanity demo,
 reference demos/from_online/demo_multiclass_lik.py:109) as JAX pytree modules.
 
-Design notes (TPU):
+Design notes:
  - Cross terms of the pairwise squared distance are computed as
-   ``|x|^2 + |z|^2 - 2 x.z`` so the O(N*M*D) work is a single dot_general that
-   XLA tiles onto the MXU; the exp/scale epilogue fuses into the same loop.
+   ``|x|^2 + |z|^2 - 2 x.z`` so the O(N*M*D) work is a single dot_general;
+   XLA fuses the exp/scale epilogue into the surrounding elementwise loop.
  - All kernels broadcast over arbitrary leading batch dims: X [..., N, D].
- - The Pallas fused K(X,Z) kernel (ops/pallas_kernels.py) auto-dispatches
-   behind this API on TPU for large f32 builds (see _pallas_kxz_fn); the
-   XLA forms remain the correctness reference and the small/CPU/f64 path.
 """
 from __future__ import annotations
 
@@ -38,15 +35,16 @@ __all__ = [
 def square_distance(X: jax.Array, X2: jax.Array | None) -> jax.Array:
     """Pairwise squared Euclidean distance, [..., N, D] x [..., M, D] -> [..., N, M].
 
-    Uses the MXU-friendly |x|^2 + |z|^2 - 2 x.z expansion with a clamp at 0
-    (the expansion can go slightly negative in floating point).
+    Uses the matmul form |x|^2 + |z|^2 - 2 x.z with a clamp at 0 (the
+    expansion can go slightly negative in floating point).
     """
     if X2 is None:
         X2 = X
     Xs = jnp.sum(jnp.square(X), axis=-1)
     X2s = jnp.sum(jnp.square(X2), axis=-1)
-    # HIGHEST: the TPU MXU's default bf16 passes lose ~1e-2 absolute on the
-    # cross term, which Cholesky downstream cannot tolerate.
+    # HIGHEST: a reduced-precision pass (bf16 or TF32 inputs) loses up to
+    # ~1e-2 absolute on the cross term, which the Cholesky downstream
+    # cannot tolerate.
     cross = jnp.matmul(X, jnp.swapaxes(X2, -1, -2),
                        preferred_element_type=X.dtype,
                        precision=jax.lax.Precision.HIGHEST)
@@ -71,26 +69,6 @@ class Kernel(Module):
 
     def __mul__(self, other):
         return Product(kernels=(self, other))
-
-
-def _pallas_kxz_fn(X, X2):
-    """The fused Pallas K(X,Z) builder to dispatch to, or None.
-
-    Eligible when the dispatch switch is on (auto: TPU backend), both
-    operands are plain f32 matrices, and the output is large enough that
-    the fused tile pipeline beats XLA (pallas_kernels.MIN_DISPATCH_ELEMS).
-    """
-    from . import pallas_kernels as pk
-    if not pk.kxz_dispatch_enabled():
-        return None
-    if X2 is None:
-        X2 = X
-    if X.ndim != 2 or X2.ndim != 2 or X.dtype != jnp.float32 \
-            or X2.dtype != jnp.float32:
-        return None
-    if X.shape[0] * X2.shape[0] < pk.MIN_DISPATCH_ELEMS:
-        return None
-    return pk
 
 
 class _Stationary(Kernel):
@@ -130,11 +108,6 @@ class SquaredExponential(_Stationary):
     """
 
     def K(self, X, X2=None):
-        pk = _pallas_kxz_fn(X, X2)
-        if pk is not None:
-            return pk.rbf_kxz(X, X if X2 is None else X2,
-                              self.variance.value, self.lengthscales.value,
-                              pk.kxz_interpret())
         d2 = self.scaled_square_distance(X, X2)
         return self.variance.value * jnp.exp(-0.5 * d2)
 
@@ -153,12 +126,6 @@ class Matern32(_Stationary):
     reference demos/from_online/demo_multiclass_lik.py:109."""
 
     def K(self, X, X2=None):
-        pk = _pallas_kxz_fn(X, X2)
-        if pk is not None:
-            return pk.matern32_kxz(X, X if X2 is None else X2,
-                                   self.variance.value,
-                                   self.lengthscales.value,
-                                   pk.kxz_interpret())
         r = jnp.sqrt(self.scaled_square_distance(X, X2) + 1e-36)
         s3r = jnp.sqrt(jnp.asarray(3.0, X.dtype)) * r
         return self.variance.value * (1.0 + s3r) * jnp.exp(-s3r)

@@ -14,52 +14,14 @@ from .linalg import cholesky, solve_triangular
 
 __all__ = ["gauss_kl"]
 
-# Tril-blocked Pallas KL kernels (ops/pallas_kl.py): None = auto (TPU,
-# f32, M >= the tril family threshold), True = forced (interpret off-TPU,
-# tests), False = dense closed form.  The Pallas backward writes ONLY the
-# tril blocks (strictly-upper garbage, masked by the Parameter tril-VJP
-# select downstream) — see the pallas_kl module contract.
-_KL_TRIL_DISPATCH: bool | None = None
-
-
-def set_kl_tril_dispatch(mode: bool | None) -> None:
-    global _KL_TRIL_DISPATCH
-    _KL_TRIL_DISPATCH = mode
-
-
-def _kl_tril_route(Lq) -> bool:
-    if _KL_TRIL_DISPATCH is False:
-        return False
-    if Lq.ndim != 3 or Lq.dtype != jnp.float32:
-        return False
-    from jax._src.interpreters.batching import BatchTracer
-    if isinstance(Lq, BatchTracer):
-        return False
-    from .pallas_kl import eligible
-    # forced mode (tests) only needs a valid block decomposition; auto
-    # keeps the measured large-M threshold of the tril family
-    min_M = 1 if _KL_TRIL_DISPATCH is True else 2048
-    if not eligible(Lq.shape[-1], min_M):
-        return False
-    if _KL_TRIL_DISPATCH is None and jax.default_backend() != "tpu":
-        return False
-    return True
-
 
 def _kl_white_tril_val(q_mu, Lq):
     M, K = q_mu.shape
     mahalanobis = jnp.sum(jnp.square(q_mu))
-    if _kl_tril_route(Lq):
-        from .pallas_kl import kl_sq_logdiag
-        trace, half_logdet = kl_sq_logdiag(
-            Lq, interpret=_KL_TRIL_DISPATCH is True
-            and jax.default_backend() != "tpu")
-        logdet_qcov = 2.0 * half_logdet
-    else:
-        idx = jnp.arange(M)
-        d = Lq[..., idx, idx]                             # [K, M]
-        logdet_qcov = 2.0 * jnp.sum(jnp.log(jnp.abs(d)))
-        trace = jnp.sum(jnp.square(Lq))
+    idx = jnp.arange(M)
+    d = Lq[..., idx, idx]                                 # [K, M]
+    logdet_qcov = 2.0 * jnp.sum(jnp.log(jnp.abs(d)))
+    trace = jnp.sum(jnp.square(Lq))
     return 0.5 * (mahalanobis - jnp.asarray(M * K, q_mu.dtype)
                   - logdet_qcov + trace)
 
@@ -71,9 +33,8 @@ def _kl_white_tril(q_mu: jax.Array, Lq: jax.Array) -> jax.Array:
 
     Autodiff of the closed form materializes the log-det gradient as a
     dense [K, M, M] scatter-add of 1/diag plus layout copies — at M=4096
-    that is several full 537 MB passes per layer per step (measured in the
-    optimized train-step HLO).  The analytic cotangent is one fused
-    elementwise pass:
+    that is several full 537 MB passes per layer per step.  The analytic
+    cotangent is one fused elementwise pass:
 
         d/d q_mu  = g * q_mu
         d/d Lq    = g * (Lq - diag_embed(1/diag(Lq)))   (upper stays 0)
@@ -85,7 +46,8 @@ def _kl_white_tril_fwd(q_mu, Lq):
     return _kl_white_tril_val(q_mu, Lq), (q_mu, Lq)
 
 
-def _dense_kl_bwd(q_mu, Lq, g):
+def _dense_kl_bwd(res, g):
+    q_mu, Lq = res
     M = Lq.shape[-1]
     i = jnp.arange(M)
     eye = i[:, None] == i[None, :]
@@ -94,36 +56,7 @@ def _dense_kl_bwd(q_mu, Lq, g):
     return g * q_mu, dLq
 
 
-def _kl_white_tril_bwd(res, g):
-    q_mu, Lq = res
-    return _dense_kl_bwd(q_mu, Lq, g)
-
-
-_kl_white_tril.defvjp(_kl_white_tril_fwd, _kl_white_tril_bwd)
-
-
-@jax.custom_vjp
-def _kl_white_tril_param(q_mu: jax.Array, Lq: jax.Array) -> jax.Array:
-    """Same KL, for Lq that came through a Parameter "tril" transform
-    (``assume_tril=True``): the routed Pallas backward writes ONLY the
-    tril blocks — strictly-upper garbage is guaranteed to be masked by
-    the Parameter transform's VJP select before any consumer (the
-    ops/pallas_kl.py module contract).  Callers differentiating a raw
-    array must use the assume_tril=False path."""
-    return _kl_white_tril_val(q_mu, Lq)
-
-
-def _kl_white_tril_param_bwd(res, g):
-    q_mu, Lq = res
-    if _kl_tril_route(Lq):
-        from .pallas_kl import kl_bwd_scale
-        dLq = kl_bwd_scale(Lq, g, interpret=_KL_TRIL_DISPATCH is True
-                           and jax.default_backend() != "tpu")
-        return g * q_mu, dLq
-    return _dense_kl_bwd(q_mu, Lq, g)
-
-
-_kl_white_tril_param.defvjp(_kl_white_tril_fwd, _kl_white_tril_param_bwd)
+_kl_white_tril.defvjp(_kl_white_tril_fwd, _dense_kl_bwd)
 
 
 def gauss_kl(q_mu: jax.Array, q_sqrt: jax.Array,
@@ -166,11 +99,7 @@ def gauss_kl(q_mu: jax.Array, q_sqrt: jax.Array,
         if Kmm is None:
             # Hot path (whiten=True): closed form with an analytic VJP —
             # one fused elementwise backward pass instead of autodiff's
-            # dense diag scatter-add + layout copies.  assume_tril (the
-            # Parameter-"tril" marker) additionally unlocks the
-            # tril-blocks-only Pallas backward on the large-M TPU path.
-            if assume_tril:
-                return _kl_white_tril_param(q_mu, Lq)
+            # dense diag scatter-add + layout copies.
             return _kl_white_tril(q_mu, Lq)
         Lq_diag = jnp.diagonal(Lq, axis1=-2, axis2=-1)
         logdet_qcov = 2.0 * jnp.sum(jnp.log(jnp.abs(Lq_diag)))

@@ -1,15 +1,13 @@
-"""Dense linear-algebra primitives with a switchable backend.
+"""Dense linear-algebra primitives of the conditional chain.
 
 The reference delegates these to TF's C++/CUDA kernels through gpflow
 (tf.linalg.cholesky / tf.linalg.triangular_solve inside base_conditional,
-reached from reference MixtureGPs/models.py:141).  Here the default backend
-is XLA's native TPU ops; a Pallas blocked implementation
-(ops/pallas_linalg.py) registers itself for the large-M hot path.  Both
-share this API so correctness tests always have an XLA oracle.
+reached from reference MixtureGPs/models.py:141).  Here the factorization
+and the solves are XLA's own ops, which on a GPU call cuSOLVER and cuBLAS.
+What this module adds is algebra, not kernels: the "fast solves" form of
+the chain, whose pullbacks need no triangular solve.
 """
 from __future__ import annotations
-
-from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -21,185 +19,74 @@ __all__ = [
     "solve_lower",
     "whiten_solve",
     "add_jitter",
-    "set_backend",
-    "get_backend",
+    "chol_pullback",
     "set_fast_solves",
-    "set_linalg_dispatch",
+    "fast_solves",
+    "INVERSE_PRECISION",
 ]
 
-# When True, L^-1 B with many RHS is computed as (L^-1) @ B — one small
-# M x M substitution, then a full-speed MXU matmul — instead of XLA's
-# sequential triangular_solve over every RHS column (~20x slower on TPU for
-# the conditional's [M, N] panels).  Default on for TPU at runtime (see
-# set_fast_solves); off for float64 CPU parity tests.
+# Fast solves: L^-1 B with many right-hand sides is formed as (L^-1) @ B —
+# one M x M triangular inverse, then a dense matmul — and the chain's
+# pullbacks (whiten_solve, cholesky, triangular_inverse) close with dense
+# matmuls instead of XLA's autodiff, whose backward solves [M, N]-panel and
+# [M, M]-RHS triangular systems.  The inverse+matmul form trades a little
+# backward stability for matmul throughput.
+#
+# Off by default: on an H100 at the north-star shape (float32, M=4096,
+# batch 8192) it was no faster than substitution once its inverse
+# products ran at INVERSE_PRECISION, and its inducing-point gradients
+# missed the float64 reference's tolerance at every precision tried
+# (chip_smoke.py phases 5-6; PERF.md).
 _FAST_SOLVES = False
-
-_BACKENDS: dict[str, dict[str, Callable]] = {
-    "xla": {
-        "cholesky": jnp.linalg.cholesky,
-    }
-}
-_ACTIVE = "xla"
-# Below this matrix size, always use XLA (Pallas launch overhead dominates).
-_PALLAS_MIN_DIM = 256
-
-# Measured large-M TRSM routing (TRSM_BENCH_r03.json, TPU v5e, slope-timed):
-# XLA's sequential-substitution triangular inverse is latency-bound at large
-# M while the Pallas blocked TRSM (ops/pallas_linalg.py) keeps the MXU busy:
-# Pallas trinv wins 2.8x at M=2048, 1.8x at 4096, 1.6x at 8192 (XLA wins
-# below: 0.154 vs 0.183 ms at M=1024).  Routing the WHOLE [M, N]-panel
-# solve to Pallas TRSM was measured SLOWER in the real conditional chain
-# (39.9 vs 33.7 ms at M=4096/N=16384): standalone it looks competitive, but
-# inside the chain the inverse+matmul form's [M,N] matmul fuses into the
-# surrounding bf16 MXU work, so only the trinv is routed
-# (_PALLAS_SOLVE_MIN_DIM is effectively disabled; kept for the bench).
-# Auto-routing applies only on TPU, float32, unbatched (2-D) operands —
-# exactly the product hot path; CPU/f64/batched calls keep the XLA oracle.
-# _LINALG_DISPATCH: None = auto (TPU only), True/False = forced (tests).
-_PALLAS_TRINV_MIN_DIM = 2048
-_PALLAS_SOLVE_MIN_DIM = 1 << 30
-# Recursive 2x2-block split for the triangular inverse (_trinv_split):
-# 1.6x faster STANDALONE at M>=4096, but measured 3.2 ms SLOWER inside the
-# real conditional chain (35.7 vs 32.6 ms at M=4096/N=16384, reproducible
-# A/B) — the plain Pallas TRSM composes better with the downstream
-# Linv@Kmn matmul.  Default OFF in the product path; lower this threshold
-# to enable for standalone large-M inverse workloads.
-_TRINV_SPLIT_MIN_DIM = 1 << 30
-_LINALG_DISPATCH: bool | None = None
-_LINALG_INTERPRET = False
-# Composite pullback for whiten_solve (chol+trinv+matmul fused): False
-# forces the unfused composition (A/B harness benchmarks/fused_vjp_ab.py).
-_WHITEN_FUSED = True
-# Precision of the fused pullback's three M^3 chol-pullback matmuls
-# (P = L^T Lbar, Kbar = Linv^T phi Linv).  HIGH (bf16x3) is the r3-measured
-# default for this family; "default" (plain bf16) would save ~2/3 of their
-# MXU passes but drops dKmm to the bf16 error class — flip only with a
-# measured win AND a convergence-quality check (the dKmn half of the Z
-# gradient is already bf16-class, so this is a consistency argument, not a
-# free pass).
-_CHOL_PULLBACK_PRECISION = "high"
-# Structured (banded-contraction Pallas) chol pullback inside the fused
-# whiten-solve backward: None = auto (TPU + eligible M), True = forced
-# (interpret mode off-TPU, for tests), False = dense XLA composition.
-_CHOL_STRUCTURED: bool | None = None
-
-
-def set_chol_structured(mode: bool | None) -> None:
-    global _CHOL_STRUCTURED
-    _CHOL_STRUCTURED = mode
-
-
-def set_whiten_fused(enabled: bool) -> None:
-    global _WHITEN_FUSED
-    _WHITEN_FUSED = bool(enabled)
-
-
-def set_chol_pullback_precision(mode: str) -> None:
-    """'high' (bf16x3, default), 'default' (bf16), or 'highest' (bf16x6 —
-    the on-chip error oracle for the other two) for the fused pullback's
-    M^3 matmuls — see _CHOL_PULLBACK_PRECISION."""
-    global _CHOL_PULLBACK_PRECISION
-    assert mode in ("high", "default", "highest")
-    _CHOL_PULLBACK_PRECISION = mode
-
-
-def set_linalg_dispatch(mode: bool | None, *, interpret: bool = False) -> None:
-    """Force the large-M Pallas TRSM routing on/off (None = auto: TPU only).
-
-    ``interpret=True`` runs the routed kernels in the Pallas interpreter —
-    for CPU parity tests of the routing itself.
-    """
-    global _LINALG_DISPATCH, _LINALG_INTERPRET
-    _LINALG_DISPATCH = mode
-    _LINALG_INTERPRET = interpret
-
-
-def _pallas_trsm_route(L, B, min_dim: int) -> bool:
-    if _LINALG_DISPATCH is False:
-        return False
-    if L.ndim != 2 or B.ndim != 2 or L.dtype != jnp.float32:
-        return False
-    if L.shape[-1] < min_dim:
-        return False
-    if _LINALG_DISPATCH is None and jax.default_backend() != "tpu":
-        return False
-    return True
-
-
-def _pallas_trsm(L, B, *, lower: bool, trans: bool):
-    from . import pallas_linalg  # lazy: pallas_linalg imports this module
-    if L.shape[-1] <= pallas_linalg.VMEM_MAX_DIM:
-        return pallas_linalg.solve_triangular_blocked(L, B, lower, trans,
-                                                      _LINALG_INTERPRET)
-    return pallas_linalg.solve_triangular_large(L, B, lower, trans,
-                                                _LINALG_INTERPRET)
-
-
-def set_backend(name: str) -> None:
-    global _ACTIVE
-    if name not in _BACKENDS:
-        raise ValueError(f"unknown linalg backend {name!r}; have {list(_BACKENDS)}")
-    _ACTIVE = name
-
-
-def get_backend() -> str:
-    return _ACTIVE
-
-
-def register_backend(name: str, impl: dict[str, Callable]) -> None:
-    _BACKENDS[name] = impl
+# Precision of every product with an explicit triangular inverse (here and
+# in models/posterior.py).  L^-1 has entries up to ~1/sqrt(jitter) that
+# cancel in L^-1 Kmn, so one-pass reduced-precision inputs (bf16, TF32)
+# lose the whitened features and the gradients through them.
+INVERSE_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def set_fast_solves(enabled: bool) -> None:
+    """Select the fast-solves form (True) or substitution (False, the
+    default).  Read at trace time: re-jit after changing it."""
     global _FAST_SOLVES
     _FAST_SOLVES = bool(enabled)
 
 
-def get_fast_solves() -> bool:
+def fast_solves() -> bool:
     return _FAST_SOLVES
+
+
+def _solve_identity(L: jax.Array, lower: bool) -> jax.Array:
+    eye = jnp.broadcast_to(jnp.eye(L.shape[-1], dtype=L.dtype), L.shape)
+    return jax.lax.linalg.triangular_solve(L, eye, left_side=True, lower=lower)
 
 
 def triangular_inverse(L: jax.Array, *, lower: bool = True) -> jax.Array:
     """Explicit inverse of a (batched) triangular matrix."""
-    m = L.shape[-1]
-    eye = jnp.eye(m, dtype=L.dtype)
-    if _pallas_trsm_route(L, eye, _PALLAS_TRINV_MIN_DIM):
-        if lower and m >= _TRINV_SPLIT_MIN_DIM and m % 2 == 0:
-            return _trinv_split(L)
-        if lower:
-            return _pallas_trinv(L)
-        return _pallas_trsm(L, eye, lower=lower, trans=False)
-    if L.ndim > 2:
-        eye = jnp.broadcast_to(eye, L.shape)
-    return jax.lax.linalg.triangular_solve(L, eye, left_side=True, lower=lower)
+    if lower and _FAST_SOLVES:
+        return _trinv(L)
+    return _solve_identity(L, lower)
 
 
 @jax.custom_vjp
-def _pallas_trinv(L: jax.Array) -> jax.Array:
-    """L^-1 via the Pallas TRSM with a SOLVE-FREE pullback.
+def _trinv(L: jax.Array) -> jax.Array:
+    """L^-1 for lower-triangular L, with a SOLVE-FREE pullback.
 
-    The generic TRSM VJP (ops/pallas_linalg.py::_trsm_vjp_bwd) needs a
-    sequential M-RHS triangular solve for Bbar = L^-T Xbar; for the
-    identity RHS the saved output IS the inverse, so the pullback of
-    d(L^-1) = -L^-1 dL L^-1 closes with two dense MXU matmuls:
+    The saved output IS the inverse, so the pullback of
+    d(L^-1) = -L^-1 dL L^-1 closes with two dense matmuls:
         Lbar = -tril(X^T Xbar X^T),  X = L^-1
-    — no substitution anywhere in the backward (measured: the sequential
-    solve is the latency-bound op this routing exists to avoid).
+    where autodiff of the triangular solve would solve an M-RHS system.
     """
-    eye = jnp.eye(L.shape[-1], dtype=L.dtype)
-    return _pallas_trsm(L, eye, lower=True, trans=False)
+    return _solve_identity(L, True)
 
 
-def _pallas_trinv_fwd(L):
-    X = _pallas_trinv(L)
+def _trinv_fwd(L):
+    X = _trinv(L)
     return X, X
 
 
-def _pallas_trinv_bwd(X, Xbar):
-    # HIGH (bf16x3): rel err ~2e-6 on the pullback — inside the 5e-4 grad
-    # tolerance; HIGHEST's 6-pass costs ~2x and measured slower than the
-    # sequential solve it replaces (trinv_vjp_ab).
-    hi = jax.lax.Precision.HIGH
+def _trinv_bwd(X, Xbar):
+    hi = INVERSE_PRECISION
     XT = jnp.swapaxes(X, -1, -2)
     G = jnp.matmul(jnp.matmul(XT, Xbar, precision=hi,
                               preferred_element_type=X.dtype),
@@ -207,73 +94,48 @@ def _pallas_trinv_bwd(X, Xbar):
     return (-jnp.tril(G),)
 
 
-_pallas_trinv.defvjp(_pallas_trinv_fwd, _pallas_trinv_bwd)
+_trinv.defvjp(_trinv_fwd, _trinv_bwd)
 
 
-def _trinv_split(L: jax.Array) -> jax.Array:
-    """Recursive 2x2-block lower-triangular inverse:
+def chol_pullback(L: jax.Array, Linv: jax.Array,
+                  Lbar: jax.Array) -> jax.Array:
+    """Cholesky pullback (Murray 2016, eq. 8-9) given the factor's inverse:
 
-        inv([[A, 0], [C, B]]) = [[inv(A), 0], [-inv(B) C inv(A), inv(B)]]
+        Kbar = sym(L^-T phi(L^T Lbar) L^-1),  phi = tril, halved diagonal
 
-    The dense-RHS TRSM spends ~3x the necessary flops on the identity's
-    zero blocks; one split replaces an M-size TRSM with two M/2 Pallas
-    TRSMs plus two dense (M/2)^3 matmuls — MXU-dense work instead of
-    substitution latency.  A pure-XLA version of this measured only 1.06x
-    (r2 negative result); with the Pallas TRSM base case it wins
-    STANDALONE: 1.6x at M=4096, 1.7x at 8192 over the plain Pallas TRSM
-    (full-sum-carry slope timing, TRSM_BENCH_r03).  Matmul precision HIGH
-    (bf16x3): measured 2.05 ms vs 2.75 (HIGHEST) at M=4096 with rel err
-    1.9e-6 vs the XLA oracle — inside the fast-solves 1e-5 error budget
-    (jitter-bounded cond).  INSIDE the conditional chain it is 3.2 ms
-    slower than the plain Pallas TRSM (reproducible A/B), so it is OFF by
-    default (_TRINV_SPLIT_MIN_DIM) and kept for standalone inverse
-    workloads.  Recursion bottoms out at the plain Pallas TRSM below the
-    threshold.
+    Dense matmuls only, at INVERSE_PRECISION; batched over leading dims.
     """
+    hi = INVERSE_PRECISION
     m = L.shape[-1]
-    h = m // 2
-    hi = jax.lax.Precision.HIGH
-    iA = triangular_inverse(L[:h, :h])
-    iB = triangular_inverse(L[h:, h:])
-    CiA = jnp.matmul(L[h:, :h], iA, precision=hi,
-                     preferred_element_type=L.dtype)
-    low = -jnp.matmul(iB, CiA, precision=hi, preferred_element_type=L.dtype)
-    top = jnp.concatenate([iA, jnp.zeros((h, m - h), L.dtype)], axis=1)
-    bot = jnp.concatenate([low, iB], axis=1)
-    return jnp.concatenate([top, bot], axis=0)
+    P = jnp.matmul(jnp.swapaxes(L, -1, -2), Lbar, precision=hi,
+                   preferred_element_type=L.dtype)
+    phi = jnp.tril(P) - 0.5 * P * jnp.eye(m, dtype=P.dtype)
+    Kbar = jnp.matmul(jnp.matmul(jnp.swapaxes(Linv, -1, -2), phi,
+                                 precision=hi,
+                                 preferred_element_type=L.dtype),
+                      Linv, precision=hi,
+                      preferred_element_type=L.dtype)
+    return 0.5 * (Kbar + jnp.swapaxes(Kbar, -1, -2))
 
 
 def whiten_solve(Kmm: jax.Array, Kmn: jax.Array) -> jax.Array:
     """A = chol(Kmm)^-1 Kmn — the whitened feature map of the conditional
-    (ops/conditionals.py, reached from reference MixtureGPs/models.py:141),
-    fused so the large-M hot path gets ONE composite pullback.
+    (ops/conditionals.py, reached from reference MixtureGPs/models.py:141).
 
-    Autodiff of the unfused chol -> trinv -> matmul composition closes the
-    backward through d(L^-1): the matmul VJP emits dLinv = Abar Kmn^T
-    (2 M^2 N), _pallas_trinv's pullback turns that into two HIGH [M, M]
-    matmuls (-X^T Xbar X^T, ~12 M^3 bf16-equivalent FLOPs), and the chol
-    pullback then RECOMPUTES the Pallas triangular inverse it already has.
-    The standard solve pullback needs none of that:
+    In the fast form the chol -> inverse -> matmul chain gets ONE composite
+    pullback.  Autodiff of the unfused chain would close the backward
+    through d(L^-1): dLinv = Abar Kmn^T, the inverse's pullback turns that
+    into two [M, M] matmuls, and the Cholesky pullback recomputes the
+    inverse it already has.  The standard solve pullback needs none of it:
 
         Kmn_bar = L^-T Abar           = Linv^T Abar        (2 M^2 N)
         L_bar   = -L^-T Abar A^T      = -tril(Kmn_bar A^T) (2 M^2 N)
 
-    then the usual Murray Cholesky pullback, reusing the forward's Linv.
-    Net: the trinv backward's two HIGH M^3 matmuls and the trinv recompute
-    vanish (~4 ms/layer ideal at M=4096); matmul precisions match the
-    unfused chain (default bf16 for the M^2 N dots — the forward solve's
-    own VJP precision — HIGH for the M^3 chol-pullback dots).
-
-    Routed exactly like the rest of the large-M family (TPU, f32, 2-D,
-    M >= _PALLAS_TRINV_MIN_DIM, fast-solves on); everything else falls
-    back to the unfused composition, which is also the autodiff oracle
-    the parity test checks against.
+    then the Cholesky pullback (chol_pullback), reusing the forward's Linv.
+    Otherwise this is plain cholesky + triangular solve, which is also the
+    autodiff oracle the tests check the fast form against.
     """
-    from jax._src.interpreters.batching import BatchTracer
-    if (_WHITEN_FUSED and _FAST_SOLVES
-            and not isinstance(Kmm, BatchTracer)
-            and not isinstance(Kmn, BatchTracer)
-            and _pallas_trsm_route(Kmm, Kmn, _PALLAS_TRINV_MIN_DIM)):
+    if _FAST_SOLVES and Kmm.shape[:-2] == Kmn.shape[:-2]:
         return _whiten_solve_fused(Kmm, Kmn)
     return solve_lower(cholesky(Kmm), Kmn)
 
@@ -285,66 +147,35 @@ def _whiten_solve_fused(Kmm, Kmn):
 
 
 def _whiten_solve_fused_fwd(Kmm, Kmn):
-    # Deliberately jnp.linalg.cholesky, NOT the module-level cholesky():
-    # the fused path only activates on the TPU/f32/large-M route where the
-    # backend wrapper would resolve to the same XLA forward anyway (the
-    # pullback below replaces _chol_fast_bwd), and a set_backend("pallas")
-    # registration must not swap the forward out from under a custom_vjp
-    # whose residuals (L, Linv, A) assume this exact factorization.
     L = jnp.linalg.cholesky(Kmm)
-    Linv = _pallas_trinv(L)
-    A = jnp.matmul(Linv, Kmn, preferred_element_type=Kmn.dtype)
+    Linv = _solve_identity(L, True)
+    A = jnp.matmul(Linv, Kmn, precision=INVERSE_PRECISION,
+                   preferred_element_type=Kmn.dtype)
     return A, (L, Linv, A)
 
 
 def _whiten_solve_fused_bwd(res, Abar):
     L, Linv, A = res
-    hi = {"high": jax.lax.Precision.HIGH,
-          "default": jax.lax.Precision.DEFAULT,
-          "highest": jax.lax.Precision.HIGHEST}[_CHOL_PULLBACK_PRECISION]
-    LinvT = jnp.swapaxes(Linv, -1, -2)
-    Kmn_bar = jnp.matmul(LinvT, Abar, preferred_element_type=L.dtype)
+    Kmn_bar = jnp.matmul(jnp.swapaxes(Linv, -1, -2), Abar,
+                         precision=INVERSE_PRECISION,
+                         preferred_element_type=L.dtype)
     Lbar = -jnp.tril(jnp.matmul(Kmn_bar, jnp.swapaxes(A, -1, -2),
+                                precision=INVERSE_PRECISION,
                                 preferred_element_type=L.dtype))
-    from . import pallas_trimm
-    if (_CHOL_STRUCTURED is not False
-            and _CHOL_PULLBACK_PRECISION == "high"
-            and pallas_trimm.eligible(L.shape[-1])
-            and (_CHOL_STRUCTURED is True
-                 or jax.default_backend() == "tpu")):
-        # Banded-contraction Pallas kernels (r5): every operand of the
-        # Murray pullback is triangular, so the three M^3 matmuls need
-        # ~1/3 the MXU passes at the SAME HIGH-class (3-pass bf16 split,
-        # f32 accum) per-element arithmetic.  The bf16 shortcut measured
-        # 631x worse Z grads (CHOLPREC_GRADERR_r04); this keeps HIGH's
-        # error class (tested) and removes structurally-zero work.
-        Kbar = pallas_trimm.chol_pullback_structured(
-            L, Linv, Lbar, interpret=_CHOL_STRUCTURED is True
-            and jax.default_backend() != "tpu")
-        return Kbar, Kmn_bar
-    # Murray (2016) eq. 8-9, identical algebra to _chol_fast_bwd_bwd but
-    # with the forward's Linv reused instead of a fresh Pallas TRSM.
-    return pallas_trimm.chol_pullback_dense(L, Linv, Lbar, hi), Kmn_bar
+    return chol_pullback(L, Linv, Lbar), Kmn_bar
 
 
 _whiten_solve_fused.defvjp(_whiten_solve_fused_fwd, _whiten_solve_fused_bwd)
 
 
 def solve_lower(L: jax.Array, B: jax.Array, *, trans: bool = False) -> jax.Array:
-    """L^-1 B (or L^-T B) choosing substitution vs inverse+matmul by config.
-
-    The inverse+matmul form trades a little backward stability for MXU
-    throughput; with the jitter floor (config.default_jitter) cond(L) is
-    bounded and fp32 error stays at the 1e-5 level (tested).  On TPU at
-    M >= 4096 the direct Pallas blocked TRSM beats both forms (measured,
-    TRSM_BENCH_r03.json) and is routed automatically.
-    """
+    """L^-1 B (or L^-T B): substitution, or inverse+matmul in the fast form
+    (see set_fast_solves)."""
     if _FAST_SOLVES:
-        if _pallas_trsm_route(L, B, _PALLAS_SOLVE_MIN_DIM):
-            return _pallas_trsm(L, B, lower=True, trans=trans)
         Linv = triangular_inverse(L)
         op = jnp.swapaxes(Linv, -1, -2) if trans else Linv
-        return jnp.matmul(op, B, preferred_element_type=B.dtype)
+        return jnp.matmul(op, B, precision=INVERSE_PRECISION,
+                          preferred_element_type=B.dtype)
     return solve_triangular(L, B, lower=True, trans=trans)
 
 
@@ -355,10 +186,7 @@ def add_jitter(K: jax.Array, jitter: float) -> jax.Array:
 
 def cholesky(K: jax.Array) -> jax.Array:
     """Lower Cholesky factor of a (batched) SPD matrix."""
-    impl = _BACKENDS[_ACTIVE]
-    if _ACTIVE != "xla" and K.shape[-1] >= _PALLAS_MIN_DIM and "cholesky" in impl:
-        return impl["cholesky"](K)
-    if _pallas_trsm_route(K, K, _PALLAS_TRINV_MIN_DIM):
+    if _FAST_SOLVES:
         return _chol_fast_bwd(K)
     return jnp.linalg.cholesky(K)
 
@@ -367,13 +195,9 @@ def cholesky(K: jax.Array) -> jax.Array:
 def _chol_fast_bwd(K: jax.Array) -> jax.Array:
     """XLA Cholesky forward with a substitution-free pullback.
 
-    XLA's built-in Cholesky VJP closes with two sequential [M, M]-RHS
-    triangular solves — the latency-bound op class the large-M routing
-    exists to avoid.  The standard pullback (Murray 2016, eq. 8-9)
-        Kbar = 0.5 L^-T phi(L^T Lbar) L^-1,  phi = tril, halved diagonal
-    only needs L^-1, which the Pallas TRSM produces in one blocked kernel;
-    the rest is dense MXU matmuls.  Forward stays XLA (fastest at every M
-    measured, TRSM_BENCH_r03).
+    XLA's built-in Cholesky VJP closes with two [M, M]-RHS triangular
+    solves.  chol_pullback needs only L^-1, from one triangular inverse;
+    the rest is dense matmuls.
     """
     return jnp.linalg.cholesky(K)
 
@@ -384,16 +208,7 @@ def _chol_fast_bwd_fwd(K):
 
 
 def _chol_fast_bwd_bwd(L, Lbar):
-    hi = jax.lax.Precision.HIGH   # see _pallas_trinv_bwd
-    P = jnp.matmul(jnp.swapaxes(L, -1, -2), Lbar, precision=hi,
-                   preferred_element_type=L.dtype)
-    phi = jnp.tril(P) - 0.5 * jnp.diag(jnp.diagonal(P))
-    Linv = _pallas_trinv(L)
-    Kbar = jnp.matmul(jnp.matmul(jnp.swapaxes(Linv, -1, -2), phi,
-                                 precision=hi,
-                                 preferred_element_type=L.dtype),
-                      Linv, precision=hi, preferred_element_type=L.dtype)
-    return (0.5 * (Kbar + jnp.swapaxes(Kbar, -1, -2)),)
+    return (chol_pullback(L, _solve_identity(L, True), Lbar),)
 
 
 _chol_fast_bwd.defvjp(_chol_fast_bwd_fwd, _chol_fast_bwd_bwd)
@@ -407,15 +222,6 @@ def solve_triangular(L: jax.Array, B: jax.Array, *, lower: bool = True,
     (it is broadcast), which is the common case here: one shared [M, M]
     Cholesky factor against per-latent right-hand sides.
     """
-    impl = _BACKENDS[_ACTIVE]
-    if (_ACTIVE != "xla" and L.shape[-1] >= _PALLAS_MIN_DIM
-            and "solve_triangular" in impl):
-        return impl["solve_triangular"](L, B, lower=lower, trans=trans)
-    return _xla_solve_triangular(L, B, lower=lower, trans=trans)
-
-
-def _xla_solve_triangular(L, B, *, lower, trans):
-    # Broadcast batch dims of L and B.
     batch = jnp.broadcast_shapes(L.shape[:-2], B.shape[:-2])
     Lb = jnp.broadcast_to(L, batch + L.shape[-2:])
     Bb = jnp.broadcast_to(B, batch + B.shape[-2:])

@@ -52,6 +52,6 @@ def relaxed_one_hot(key: jax.Array, logits: jax.Array,
     """Sample soft one-hot weights over the trailing axis.
 
     softmax is shift-invariant, so dividing by tau=1e-2 (x100 logits) stays
-    finite in float32 — no fp64 island needed on TPU.
+    finite in float32 — no fp64 island needed.
     """
     return jax.nn.softmax(gumbel_softmax_logits(key, logits, temperature), axis=-1)

@@ -36,6 +36,12 @@ from jax import shard_map
 
 __all__ = ["distributed_cholesky", "distributed_solve_lower"]
 
+# The trailing and substitution updates feed the next diagonal block's
+# Cholesky; one-pass reduced-precision products (TF32 on a GPU) leave
+# errors above the jitter-sized small eigenvalues and the factorization
+# goes NaN at M=4096 in float32.
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _i32(v):
     return jnp.asarray(v, jnp.int32)
@@ -87,7 +93,7 @@ def _chol_local(A_loc, *, axis: str, block: int):
         # submatrix (columns > j0+block-1) — local matmul, no comm.
         Lcol = jax.lax.all_gather(Lpan, axis, tiled=True)        # [M, block]
         Lcol_trail = jnp.where((gcol >= j0 + block)[:, None], Lcol, 0.0)
-        A_loc = A_loc - jnp.matmul(Lpan, Lcol_trail.T,
+        A_loc = A_loc - jnp.matmul(Lpan, Lcol_trail.T, precision=_HI,
                                    preferred_element_type=A_loc.dtype)
         L_loc = jax.lax.dynamic_update_slice(L_loc, Lpan, (_i32(0), _i32(j0)))
         return A_loc, L_loc
@@ -118,7 +124,8 @@ def _solve_lower_local(L_loc, B_loc, *, axis: str, block: int):
         # L entries in this column block, so the mask only protects the
         # already-consumed diagonal rows).
         Lcolj = jax.lax.dynamic_slice(L_loc, (_i32(0), _i32(j0)), (rpd, block))
-        upd = jnp.matmul(Lcolj, Xj, preferred_element_type=B_loc.dtype)
+        upd = jnp.matmul(Lcolj, Xj, precision=_HI,
+                         preferred_element_type=B_loc.dtype)
         B_loc = B_loc - jnp.where((grow >= j0 + block)[:, None], upd, 0.0)
 
         keep = jax.lax.dynamic_slice(X_loc, (offc, _i32(0)), (block, N))

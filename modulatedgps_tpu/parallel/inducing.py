@@ -172,8 +172,7 @@ def _conditional_local(layer, X_loc, *, axis: str, block: int, nshards: int):
     Lg = jax.lax.all_gather(L_loc, axis, tiled=True)        # [M, M]
 
     # Each device solves the full-M TRSM for ITS OWN batch columns only:
-    # zero communication, M^2 N/P FLOPs, and a dense local solve that the
-    # ops.linalg Pallas TRSM routing can claim on TPU at M>=2048.
+    # zero communication, M^2 N/P FLOPs, one dense local solve.
     Kmn_loc = layer.kernel.K(Zg, X_loc)                     # [M, N/P]
     A_loc = solve_lower(Lg, Kmn_loc)                        # [M, N/P]
 

@@ -5,7 +5,7 @@ NCCL-equivalent is GSPMD over a ``jax.sharding.Mesh``:
 
   axes: ('data', 'expert')
    - 'data'   : shards the minibatch N — ELBO terms and gradients are
-                all-reduced by XLA-inserted psums over ICI;
+                all-reduced by XLA-inserted psums (NCCL on GPUs);
    - 'expert' : shards the K mixture components — q_mu [M, K] on its K
                 axis, q_sqrt [K, M, M] on its leading axis, per-expert
                 likelihood variance (1, K) — the GP analog of expert/tensor

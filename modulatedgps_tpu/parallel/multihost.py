@@ -1,5 +1,5 @@
 """Multi-host entry (SURVEY.md §5.8): jax.distributed bootstrap + global
-mesh construction over ICI/DCN.
+mesh construction across hosts.
 
 Single-host (including the 8-virtual-CPU-device test harness) is the
 degenerate case: initialize() is a no-op and the global mesh equals the
@@ -16,17 +16,11 @@ __all__ = ["initialize_multihost", "global_mesh", "is_coordinator"]
 _initialized = False
 
 
-# Env markers that mean "this process is part of a multi-process job".
-# Cloud TPU pods set the TPU_* / MEGASCALE_* ones (jax.distributed auto-
-# detects the coordinator from TPU metadata with NO explicit address); the
-# JAX_/COORDINATOR_ ones are the explicit CPU/GPU-style bootstrap.
+# Env markers that mean "this process is part of a multi-process job"
+# whose coordinator is named explicitly.
 _MULTIPROC_ENV_MARKERS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "TPU_WORKER_HOSTNAMES",       # Cloud TPU pod metadata
-    "TPU_WORKER_ID",
-    "MEGASCALE_COORDINATOR_ADDRESS",  # multislice
-    "CLOUD_TPU_TASK_ID",
 )
 
 
@@ -37,9 +31,8 @@ def initialize_multihost(coordinator_address: str | None = None,
     """Initialize jax.distributed when running multi-process.
 
     With no arguments, a multi-process environment is detected from the
-    standard markers (_MULTIPROC_ENV_MARKERS) — this covers Cloud TPU pods,
-    where argless jax.distributed.initialize() auto-detects the coordinator
-    from TPU metadata, and explicit JAX_COORDINATOR_ADDRESS setups.
+    standard markers (_MULTIPROC_ENV_MARKERS): explicit
+    JAX_COORDINATOR_ADDRESS setups.
     ``force=True`` skips detection and always calls initialize (for
     environments with non-standard markers).  Single-process is a no-op.
     """
@@ -63,8 +56,7 @@ def initialize_multihost(coordinator_address: str | None = None,
 
 
 def global_mesh(num_expert: int = 1):
-    """('data','expert') mesh over all global devices; 'data' spans hosts so
-    its collectives ride ICI within a slice and DCN across slices."""
+    """('data','expert') mesh over all global devices; 'data' spans hosts."""
     return make_mesh(num_expert=num_expert, devices=jax.devices())
 
 

@@ -2,9 +2,7 @@ from .loop import (run_adam, run_adam_multistart, make_train_step,
                    TrainState)
 from .checkpoint import save_checkpoint, restore_checkpoint
 from .scipy_opt import run_scipy
-from .fused_adam import FusedAdam, fused_adam
 
 __all__ = ["run_adam", "run_adam_multistart", "make_train_step",
            "TrainState",
-           "save_checkpoint", "restore_checkpoint", "run_scipy",
-           "FusedAdam", "fused_adam"]
+           "save_checkpoint", "restore_checkpoint", "run_scipy"]

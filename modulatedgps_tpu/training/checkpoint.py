@@ -1,5 +1,5 @@
 """Checkpoint / resume (SURVEY.md §5.4 — absent in the reference, required
-for preemption-safe TPU training).
+for preemption-safe training).
 
 All state is an explicit pytree (model params + Adam moments + step + RNG
 key), so a checkpoint is just its flattened leaves.  Stored as .npz — no

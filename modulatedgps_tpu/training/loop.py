@@ -1,6 +1,6 @@
 """Adam training loop: the analog of reference utils/training_utils.py:4-28.
 
-Differences by design (TPU-first):
+Differences by design:
  - the optimization step is one jitted function (model pytree in, model
    pytree out) — no Python-side optimizer state mutation;
  - RNG is an explicit threefry key chain, not a global seed;
@@ -44,7 +44,7 @@ def make_train_step(optimizer, loss_fn: Callable | None = None,
     ``compute_dtype`` (e.g. float32).  The cast's transpose casts gradients
     back up, so Adam moments and the parameter update run in the stored
     dtype; this isolates/avoids update-arithmetic rounding while keeping
-    compute at MXU-friendly precision.
+    compute at matmul-friendly precision.
 
     ``loss_island_dtype`` is the complement (the round-3 ablation's directly
     implied arm): parameters, Adam state and the CONDITIONAL chains stay in
@@ -54,7 +54,7 @@ def make_train_step(optimizer, loss_fn: Callable | None = None,
     ``loss_island_dtype`` (e.g. float64) after casting the marginals (and,
     for the KL, the variational parameters) up.  The cast's transpose brings
     gradients back down at the marginal boundary, so the O(M^2 N) compute
-    stays MXU-friendly and only the cheap [S, N, K] elementwise reduction +
+    stays in the stored dtype and only the cheap [S, N, K] elementwise reduction +
     the KL pay for high precision.  Requires an SMGP-family model (uses
     ``_marginals`` / ``E_log_p_from_marginals``).
     """
@@ -93,16 +93,9 @@ def make_train_step(optimizer, loss_fn: Callable | None = None,
         key, sub = jax.random.split(state.key)
         loss_val, grads = jax.value_and_grad(loss)(state.model, sub, X, Y)
         grads = apply_trainable_mask(grads, trainable_mask(state.model))
-        if hasattr(optimizer, "update_and_apply"):
-            # FusedAdam-style optimizer: one fused update+apply (the large
-            # tril leaves go through a Pallas kernel over the lower-
-            # triangular blocks only — see training/fused_adam.py).
-            model, opt_state = optimizer.update_and_apply(
-                grads, state.opt_state, state.model)
-        else:
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.model)
-            model = optax.apply_updates(state.model, updates)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.model)
+        model = optax.apply_updates(state.model, updates)
         return TrainState(model=model, opt_state=opt_state,
                           step=state.step + 1, key=key), loss_val
 
@@ -115,8 +108,7 @@ def run_adam(model, num_iter: int, train_iter: Iterator, lr: float,
              callback: Callable | None = None,
              checkpoint_path: str | None = None, checkpoint_every: int = 0,
              resume: bool = False, compute_dtype=None,
-             loss_island_dtype=None, optimizer=None,
-             use_fused_adam: bool | None = None):
+             loss_island_dtype=None, optimizer=None):
     """Train with Adam; returns (model, iters, elbos).
 
     Contract parity with reference run_adam (utils/training_utils.py:4-28):
@@ -131,13 +123,8 @@ def run_adam(model, num_iter: int, train_iter: Iterator, lr: float,
     the same state as an uninterrupted one.  The caller owns ``train_iter``:
     for bit-exact reproduction fast-forward it to the restored step.
 
-    Optimizer selection: ``optimizer`` (any optax GradientTransformation or
-    FusedAdam-style object) overrides everything.  Otherwise
-    ``use_fused_adam`` picks between the fused tril Adam (True), plain
-    ``optax.adam`` (False), or the measured default (None = FusedAdam on
-    TPU, optax elsewhere).  FusedAdam requires static float hyperparameters
-    (no schedules) — pass ``use_fused_adam=False`` or an explicit
-    ``optimizer`` for scheduled learning rates.
+    ``optimizer`` (any optax GradientTransformation) replaces the default
+    ``optax.adam(lr)``.
     """
     if key is None:
         key = jax.random.PRNGKey(0)
@@ -146,18 +133,7 @@ def run_adam(model, num_iter: int, train_iter: Iterator, lr: float,
         warnings.warn("checkpoint_every is set but checkpoint_path is None — "
                       "no checkpoints will be saved", stacklevel=2)
     if optimizer is None:
-        if use_fused_adam is None:
-            use_fused_adam = jax.default_backend() == "tpu"
-        if use_fused_adam:
-            # Same arithmetic and state as optax.adam; large tril leaves take
-            # the fused Pallas update over lower-triangular blocks only, with
-            # p/m/v aliased input->output (ADAM_FUSED_AB_r04.json: 115.9 ->
-            # 113.6 ms at M=4096; the aliasing is also a correctness
-            # requirement — unvisited upper blocks keep their values).
-            from .fused_adam import fused_adam
-            optimizer = fused_adam(lr)
-        else:
-            optimizer = optax.adam(lr)
+        optimizer = optax.adam(lr)
     init_fn, step_fn = make_train_step(optimizer, compute_dtype=compute_dtype,
                                        loss_island_dtype=loss_island_dtype)
     if compile:
@@ -212,10 +188,10 @@ def run_adam_multistart(model, num_iter: int, make_train_iter, lr: float,
                         probe_data=None, eval_keys: int = 4,
                         key: jax.Array | None = None, log_every: int = 5,
                         verbose: bool = True, compile: bool = True,
-                        optimizer=None, use_fused_adam: bool | None = None):
+                        optimizer=None):
     """Multi-start Adam: basin selection against the jitter-floor lottery.
 
-    The r4 fp32 ablation's terminal attribution (FP32_ABLATION_r04.json):
+    The float32 ablation study's attribution:
     at the 1e-4 jitter floor float32 requires, 2-3 of 8 seeds land in a
     worse optimization basin — a property of the loss landscape shared by
     pure float64 at the same jitter, not of f32 arithmetic.  The
@@ -239,13 +215,7 @@ def run_adam_multistart(model, num_iter: int, make_train_iter, lr: float,
     if key is None:
         key = jax.random.PRNGKey(0)
     if optimizer is None:
-        if use_fused_adam is None:
-            use_fused_adam = jax.default_backend() == "tpu"
-        if use_fused_adam:
-            from .fused_adam import fused_adam
-            optimizer = fused_adam(lr)
-        else:
-            optimizer = optax.adam(lr)
+        optimizer = optax.adam(lr)
     init_fn, step_fn = make_train_step(optimizer)
     if compile:
         step_fn = jax.jit(step_fn)

@@ -3,7 +3,7 @@
 //
 // Role: the reference's input pipeline is tf.data's C++ runtime
 // (reference demos/demo_tf2.py:53-56); this is the equivalent native layer
-// for this framework — the TPU compute path stays in XLA/Pallas, host IO
+// for this framework — the device compute path stays in XLA, host IO
 // and batch assembly stay off the Python interpreter.
 //
 // Exposed C ABI (consumed via ctypes from modulatedgps_tpu/data/native.py):

@@ -6,6 +6,7 @@ whitened: f|u ~ N(A^T q_mu, Knn - A^T A + A^T S S^T A), A = Lm^-1 Kmn.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import scipy.linalg
 
 from modulatedgps_tpu.ops.conditionals import base_conditional
@@ -257,70 +258,37 @@ def test_predict_f_full_output_cov(rng):
     np.testing.assert_allclose(np.asarray(pvar4), np.asarray(var4), rtol=1e-8)
 
 
-class TestPallasKL:
-    """Tril-blocked whitened-KL kernels (ops/pallas_kl.py, r5)."""
+@pytest.mark.parametrize("M", [1, 6, 40])
+@pytest.mark.parametrize("source", ["parameter", "raw"])
+def test_gauss_kl_analytic_vjp_matches_autodiff(rng, source, M):
+    """The whitened KL's analytic VJP against autodiff of the closed form,
+    both for q_sqrt from a Parameter "tril" transform (assume_tril) and for
+    a raw array with a non-zero upper triangle (masked inside gauss_kl)."""
+    from modulatedgps_tpu.params import Parameter
+    K = 3
+    q_mu = jnp.asarray(rng.normal(size=(M, K)))
+    raw = jnp.asarray(rng.normal(size=(K, M, M)) * 0.2 + np.eye(M))
 
-    def _mats(self):
-        rng = np.random.default_rng(5)
-        K, M = 3, 1024
-        Lq = np.tril(rng.normal(size=(K, M, M)) * 0.05).astype(np.float32)
-        for k in range(K):
-            np.fill_diagonal(Lq[k], np.abs(Lq[k].diagonal()) + 0.5)
-        q_mu = rng.normal(size=(M, K)).astype(np.float32)
-        return jnp.asarray(q_mu), jnp.asarray(Lq)
+    def plain(q_mu, raw):
+        Lq = jnp.tril(raw)
+        d = jnp.diagonal(Lq, axis1=-2, axis2=-1)
+        return 0.5 * (jnp.sum(jnp.square(q_mu)) - M * K
+                      - 2.0 * jnp.sum(jnp.log(jnp.abs(d)))
+                      + jnp.sum(jnp.square(Lq)))
 
-    def test_fwd_matches_dense(self):
-        from modulatedgps_tpu.ops import pallas_kl
-        q_mu, Lq = self._mats()
-        sq, ld = pallas_kl.kl_sq_logdiag(Lq, interpret=True)
-        np.testing.assert_allclose(float(sq),
-                                   float(jnp.sum(jnp.square(Lq))),
-                                   rtol=1e-5)
-        idx = np.arange(Lq.shape[-1])
-        ld_ref = float(np.sum(np.log(np.abs(
-            np.asarray(Lq)[:, idx, idx]))))
-        np.testing.assert_allclose(float(ld), ld_ref, rtol=1e-5)
+    if source == "parameter":
+        p = Parameter(raw, transform="tril")
 
-    def test_bwd_matches_dense_on_tril(self):
-        from modulatedgps_tpu.ops import pallas_kl
-        q_mu, Lq = self._mats()
-        g = jnp.asarray(0.7, jnp.float32)
-        d = np.asarray(pallas_kl.kl_bwd_scale(Lq, g, interpret=True))
-        M = Lq.shape[-1]
-        i = np.arange(M)
-        eye = i[:, None] == i[None, :]
-        Ln = np.asarray(Lq)
-        safe = np.where(eye, Ln, 1.0)
-        d_ref = 0.7 * np.where(eye, Ln - 1.0 / safe, Ln)
-        il = np.tril_indices(M)
-        np.testing.assert_allclose(d[:, il[0], il[1]],
-                                   d_ref[:, il[0], il[1]], rtol=1e-5,
-                                   atol=1e-6)
-
-    def test_routed_gauss_kl_grads_through_parameter(self):
-        """End-to-end: gradients w.r.t. a Parameter 'tril' raw leaf with
-        the routed KL equal the dense path exactly on the tril (the
-        strictly-upper garbage is masked by the transform VJP)."""
-        from modulatedgps_tpu.ops import kl as kl_mod
-        from modulatedgps_tpu.params import Parameter
-        q_mu, Lq = self._mats()
-        p = Parameter(np.asarray(Lq), transform="tril")
-
-        def loss(raw):
-            pv = p.replace_raw(raw)
-            return kl_mod.gauss_kl(q_mu, pv.value, None, assume_tril=True)
-
-        try:
-            kl_mod.set_kl_tril_dispatch(False)
-            v_ref = float(loss(p.raw))
-            g_ref = np.asarray(jax.grad(loss)(p.raw))
-            kl_mod.set_kl_tril_dispatch(True)
-            v_p = float(loss(p.raw))
-            g_p = np.asarray(jax.grad(loss)(p.raw))
-        finally:
-            kl_mod.set_kl_tril_dispatch(None)
-        np.testing.assert_allclose(v_p, v_ref, rtol=1e-6)
-        np.testing.assert_allclose(g_p, g_ref, rtol=1e-5, atol=1e-6)
-        # upper triangle exactly zero (select-masked)
-        iu = np.triu_indices(Lq.shape[-1], k=1)
-        assert np.all(g_p[:, iu[0], iu[1]] == 0.0)
+        def kl(q_mu, r):
+            return gauss_kl(q_mu, p.replace_raw(r).value, assume_tril=True)
+    else:
+        kl = gauss_kl
+    got = jax.grad(kl, argnums=(0, 1))(q_mu, raw)
+    want = jax.grad(plain, argnums=(0, 1))(q_mu, raw)
+    np.testing.assert_allclose(float(kl(q_mu, raw)), float(plain(q_mu, raw)),
+                               rtol=1e-12)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+    upper = np.triu(np.ones((M, M)), k=1).astype(bool)
+    assert np.all(np.asarray(got[1])[:, upper] == 0.0)

@@ -85,83 +85,3 @@ def test_multi_seed_quality_criteria():
     assert jd["best_expert_rmse"] <= 1.2
     jm = data["families"]["demo_john_doe_multiclass"]["seeds"]["0"]
     assert jm["accuracy_vs_labels"] >= jm["majority_base_rate"] - 0.01
-
-
-def test_pallas_tpu_compiled_parity():
-    """PALLAS_TPU_r*.json (benchmarks/pallas_tpu_parity.py) is the
-    compiled-mode evidence for every Pallas kernel on real TPU — the CI
-    suite only exercises interpret mode (VERDICT r1 weak #9).  Asserts the
-    newest committed artifact has every check passing, including the
-    large-M HBM-resident Cholesky/TRSM variants the VMEM kernels cannot
-    reach."""
-    import glob
-    paths = sorted(glob.glob(os.path.join(REPO, "PALLAS_TPU_r*.json")))
-    assert paths, "no PALLAS_TPU_r*.json artifact committed"
-    with open(paths[-1]) as f:
-        data = json.load(f)
-    assert data["all_pass"] is True
-    assert any(k.startswith("cholesky_large.M4096") for k in data["checks"])
-    assert any(k.startswith("trsm_large") for k in data["checks"])
-    for name, row in data["checks"].items():
-        assert row["pass"], (name, row)
-
-
-def test_fp32_ablation_bounds():
-    """FP32_ABLATION_r*.json (benchmarks/fp32_ablation.py) pins the fp32
-    convergence story for the flagship workload (VERDICT r1 weak #8, r2
-    weak #5 — n>=8 seeds + mechanism/mitigation arms since r3).
-    Measured conclusions this asserts:
-      - the f64 golden regime reproduces the reference-figure plateau;
-      - the fp32 jitter floor (1e-4 vs 1e-6) is statistically innocent:
-        the f64_j4 arm's mean gap (~0.07 nats at n=8, driven by 3 seeds
-        in a worse basin) is within 2 Welch standard errors of zero and
-        its median seed lands inside the f64 seed spread;
-      - the principal arms carry >=8 training seeds and the f32/f64 seed
-        DISTRIBUTIONS overlap (the best f32 seeds land inside the f64
-        spread, beating its lower quartile); the mean gap (~0.08 nats,
-        ~1.5 pooled-sd) is bounded by 0.15;
-      - MECHANISM (r04): every dtype-specific suspect is exonerated —
-        f64 master weights (f32_mw64), the f64 loss island downstream of
-        the marginals (f32_l64), HIGHEST MXU passes (tpu_f32_hi) and
-        flush-to-zero (f64_ftz) all reproduce the f32-regime mean within
-        noise, while pure-f64-at-jitter-1e-4 (f64_j4) reproduces the gap;
-        the parsimonious mechanism is the 1e-4 jitter floor's
-        basin-frequency effect (FP32_ABLATION_r04.json summary block);
-      - the straight-through Gumbel mitigation is catastrophically biased
-        (~-1.35 vs -0.12) and must stay out of the product defaults.
-    Regenerate with: python benchmarks/fp32_ablation.py --tpu."""
-    import glob
-    paths = sorted(glob.glob(os.path.join(REPO, "FP32_ABLATION_r*.json")))
-    with open(paths[-1]) as f:
-        arms = json.load(f)["arms"]
-    f64 = arms["f64"]["elbo_mean"]
-    assert f64 >= -0.15, arms["f64"]
-    for principal in ("f64", "f32", "f32_mw64"):
-        assert len(arms[principal]["runs"]) >= 8, principal
-    f64_seeds = [r["elbo"] for r in arms["f64"]["runs"]]
-    f32_seeds = [r["elbo"] for r in arms["f32"]["runs"]]
-    # Jitter-floor innocence is a STATISTICAL claim: at n=8 the f64_j4 arm
-    # differs from f64 by ~0.07 nats mean (3/8 seeds in a worse optimum,
-    # sd 0.126) — within 2 Welch standard errors of zero, and the arm's
-    # median seed lands inside the f64 seed spread.
-    j4 = arms["f64_j4"]
-    j4_seeds = sorted(r["elbo"] for r in j4["runs"])
-    n4, n0 = len(j4_seeds), len(f64_seeds)
-    se = ((j4["elbo_sd"] ** 2) / n4 + (arms["f64"]["elbo_sd"] ** 2) / n0) ** 0.5
-    assert abs(j4["elbo_mean"] - f64) <= max(2 * se, 0.05), (j4, se)
-    med_j4 = (j4_seeds[(n4 - 1) // 2] + j4_seeds[n4 // 2]) / 2
-    assert med_j4 >= min(f64_seeds), (med_j4, min(f64_seeds))
-    q1_f64 = sorted(f64_seeds)[len(f64_seeds) // 4]
-    assert max(f32_seeds) > q1_f64, "f32/f64 distributions no longer overlap"
-    for arm in ("f32", "tpu_f32", "tpu_f32_hi", "f32_mw64"):
-        if arm in arms:   # TPU arms need the chip; CPU-only regen skips them
-            assert arms[arm]["elbo_mean"] >= f64 - 0.15, (arm, arms[arm])
-    assert abs(arms["f32_mw64"]["elbo_mean"] - arms["f32"]["elbo_mean"]) <= 0.1
-    if "f32_l64" in arms:
-        # r04: the f64 loss island does NOT recover f64's mean — it tracks
-        # the f32 regime (refutes the r3 loss-rounding attribution).
-        assert len(arms["f32_l64"]["runs"]) >= 8
-        assert abs(arms["f32_l64"]["elbo_mean"]
-                   - arms["f32"]["elbo_mean"]) <= 0.1, arms["f32_l64"]
-    if "f32_st01" in arms:    # documented-negative mitigation
-        assert arms["f32_st01"]["elbo_mean"] < -1.0

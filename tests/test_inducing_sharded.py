@@ -179,7 +179,7 @@ class TestCollectiveAudit:
     """Round-4 restructure pin: the inducing-sharded train step's collective
     payload must not be a function of N (round 3 all-gathered the [M, N]
     A-panel every step — the exact weak-scaling pathology diagnosed for the
-    data-parallel path in SCALING_r03)."""
+    data-parallel path in round 2)."""
 
     def _lowered_collectives(self, rng, mesh, N):
         model, X, Y = _model(rng, M=64, N=N, randomize=False)
@@ -216,3 +216,21 @@ def test_inducing_specs_shapes(rng):
     assert specs.pred_layer.q_sqrt.raw == P(None, None, "data")
     assert specs.pred_layer.Z.raw == P("data", None)
     assert specs.likelihood.variance.raw == P()
+
+
+def test_inducing_audit_n_independent():
+    """The committed HLO audit (benchmarks/inducing_audit.py) records
+    collective payloads independent of N: the Lq ppermute ring, no
+    all-to-all."""
+    import glob
+    import json
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = sorted(glob.glob(os.path.join(repo, "INDUCING_AUDIT_r*.json")))
+    assert paths, "no INDUCING_AUDIT_r*.json artifact committed"
+    with open(paths[-1]) as f:
+        d = json.load(f)
+    assert d["payload_independent_of_N"] is True
+    ops = {r["op"] for t in d["collectives"].values() for r in t}
+    assert "collective-permute" in ops   # the Lq ring
+    assert "all-to-all" not in ops

@@ -136,8 +136,8 @@ def test_expert_sharded_training_runs(rng):
 
 
 def test_data_parallel_hlo_has_exactly_one_collective(rng):
-    """Structural shardability audit (SCALING_r03.json): the compiled
-    8-device production train step (fast solves) must contain exactly one
+    """Structural shardability audit: the compiled 8-device production
+    train step (fast solves) must contain exactly one
     collective — the gradient all-reduce — and in particular NO all-gather
     of the [M, N_global] Kmn panel (the r2 weak-scaling regression came
     from XLA having no partitioned sharding rule for triangular_solve's

@@ -241,148 +241,6 @@ def test_run_adam_warns_checkpoint_every_without_path(rng):
     assert any("checkpoint_every" in str(x.message) for x in w)
 
 
-def test_fused_adam_matches_optax(rng):
-    """FusedAdam.update_and_apply == optax.adam update/apply over multiple
-    steps, with the large tril leaf routed through the Pallas fused kernel
-    (forced dispatch + interpret mode) and the rest through the inline
-    math.  State stays optax-shaped (count/mu/nu) for checkpoint parity."""
-    import functools
-    import unittest.mock as mock
-    import optax
-    import importlib
-    fa = importlib.import_module("modulatedgps_tpu.training.fused_adam")
-
-    K, M = 2, 512
-    # NONZERO strict-upper on the param with tril-zero grads: the blocked
-    # kernel never visits the upper blocks, so only input->output aliasing
-    # keeps them bit-exact (uninitialized garbage otherwise — caught
-    # on-chip in the r4 Adam A/B's qsum drift).
-    full = jnp.asarray(rng.normal(size=(K, M, M)), jnp.float32)
-    params = {"q": full, "w": jnp.asarray(rng.normal(size=(7,)), jnp.float32)}
-    opt_ref = optax.adam(1e-2)
-    opt_fused = fa.FusedAdam(1e-2)
-    state_ref = opt_ref.init(params)
-    state_fused = opt_fused.init(params)
-    p_ref, p_fused = params, params
-
-    orig = fa.pl.pallas_call
-
-    def patched(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    old_min = fa._FUSED_MIN_DIM
-    try:
-        fa._FUSED_MIN_DIM = M
-        fa.set_fused_dispatch(True)
-        with mock.patch.object(fa.pl, "pallas_call", patched):
-            assert fa._eligible(params["q"])
-            for i in range(3):
-                g = {"q": jnp.tril(jnp.asarray(
-                        rng.normal(size=(K, M, M)), jnp.float32)),
-                     "w": jnp.asarray(rng.normal(size=(7,)), jnp.float32)}
-                upd, state_ref = opt_ref.update(g, state_ref, p_ref)
-                p_ref = optax.apply_updates(p_ref, upd)
-                p_fused, state_fused = opt_fused.update_and_apply(
-                    g, state_fused, p_fused)
-    finally:
-        fa._FUSED_MIN_DIM = old_min
-        fa.set_fused_dispatch(None)
-
-    # reciprocal-multiply vs optax's divide: 1-2 ulp f32 differences
-    np.testing.assert_allclose(np.asarray(p_fused["q"]),
-                               np.asarray(p_ref["q"]), rtol=1e-5, atol=5e-7)
-    np.testing.assert_allclose(np.asarray(p_fused["w"]),
-                               np.asarray(p_ref["w"]), rtol=1e-5, atol=5e-7)
-    np.testing.assert_allclose(
-        np.asarray(state_fused[0].mu["q"]), np.asarray(state_ref[0].mu["q"]),
-        rtol=1e-5, atol=5e-7)
-    np.testing.assert_allclose(
-        np.asarray(state_fused[0].nu["q"]), np.asarray(state_ref[0].nu["q"]),
-        rtol=1e-5, atol=5e-7)
-    assert int(state_fused[0].count) == int(state_ref[0].count) == 3
-    # Strict-upper of the tril leaf: aliased through bit-exactly (optax
-    # keeps it fixed too, zero grads there) — including NONZERO values.
-    iu = np.triu_indices(M, k=1)
-    upper = np.asarray(params["q"])[:, iu[0], iu[1]]
-    assert np.abs(upper).max() > 0.1
-    np.testing.assert_array_equal(np.asarray(p_fused["q"])[:, iu[0], iu[1]],
-                                  upper)
-    np.testing.assert_array_equal(
-        np.asarray(state_fused[0].mu["q"])[:, iu[0], iu[1]], 0.0)
-
-
-def test_fused_adam_tuple_container_params(rng):
-    """Regression (ADVICE r4): tuples are legitimate pytree CONTAINER nodes
-    (Sum/Product kernels hold ``kernels: tuple``), so the update_and_apply
-    result split must not mistake a container tuple for a per-leaf result
-    triple.  A params tree with a 3-element tuple container — the exact
-    shape that aliased the old ``is_leaf=isinstance(x, tuple)`` split —
-    must match optax exactly."""
-    import importlib
-    import optax
-    fa = importlib.import_module("modulatedgps_tpu.training.fused_adam")
-
-    params = {
-        "kernels": tuple(jnp.asarray(rng.normal(size=(4,)), jnp.float32)
-                         for _ in range(3)),
-        "w": jnp.asarray(rng.normal(size=(5,)), jnp.float32),
-    }
-    grads = jax.tree.map(lambda p: jnp.ones_like(p), params)
-    opt_ref = optax.adam(1e-2)
-    opt_fused = fa.FusedAdam(1e-2)
-    state_ref = opt_ref.init(params)
-    state_fused = opt_fused.init(params)
-    p_ref, p_fused = params, params
-    for _ in range(2):
-        upd, state_ref = opt_ref.update(grads, state_ref, p_ref)
-        p_ref = optax.apply_updates(p_ref, upd)
-        p_fused, state_fused = opt_fused.update_and_apply(
-            grads, state_fused, p_fused)
-    assert jax.tree_util.tree_structure(p_fused) == \
-        jax.tree_util.tree_structure(params)
-    for a, b in zip(jax.tree.leaves(p_fused), jax.tree.leaves(p_ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=5e-7)
-
-
-def test_fused_adam_sum_kernel_model(rng):
-    """End-to-end: an SMGP whose layers use a Sum kernel (tuple-of-kernels
-    container node) trains through the FusedAdam path without tree
-    corruption — the pre-fix failure mode was structure corruption on the
-    FIRST step.  Result must match the optax path exactly (small leaves
-    take FusedAdam's inline math, identical arithmetic up to ulps)."""
-    from modulatedgps_tpu.ops.kernels import Sum
-    from modulatedgps_tpu.training import run_adam
-
-    K, M, N = 2, 8, 30
-    lik = Gaussian.create(0.5, D=K)
-    mk = lambda: SVGP.create(
-        Sum(kernels=(SquaredExponential.create(0.5, 0.5),
-                     SquaredExponential.create(0.3, 1.5))),
-        rng.normal(size=(M, 1)), num_latent_gps=K)
-    model = SMGP(likelihood=lik, pred_layer=mk(), assign_layer=mk(),
-                 K=K, num_samples=3, num_data=N)
-    X = jnp.asarray(rng.uniform(-3, 3, size=(N, 1)))
-    Y = jnp.asarray(rng.normal(size=(N, 1)))
-
-    def batches():
-        while True:
-            yield X, Y
-
-    m_fused, _, e_fused = run_adam(model, 10, batches(), 1e-2,
-                                   verbose=False, use_fused_adam=True,
-                                   key=jax.random.PRNGKey(1))
-    m_opt, _, e_opt = run_adam(model, 10, batches(), 1e-2,
-                               verbose=False, use_fused_adam=False,
-                               key=jax.random.PRNGKey(1))
-    assert jax.tree_util.tree_structure(m_fused) == \
-        jax.tree_util.tree_structure(m_opt)
-    for a, b in zip(jax.tree.leaves(m_fused), jax.tree.leaves(m_opt)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-10, atol=1e-12)
-
-
 def test_run_adam_multistart_selects_and_continues(rng):
     """Multi-start (r5 jitter-basin mitigation): trains num_starts probe
     replicas, picks the best probe ELBO, and the continuation equals an
