@@ -32,12 +32,16 @@ __all__ = [
 # [M, M]-RHS triangular systems.  The inverse+matmul form trades a little
 # backward stability for matmul throughput.
 #
-# Off by default: on an H100 at the north-star shape (float32, M=4096,
-# batch 8192) it was no faster than substitution once its inverse
-# products ran at INVERSE_PRECISION, and its inducing-point gradients
-# missed the float64 reference's tolerance at every precision tried
-# (chip_smoke.py phases 5-6; PERF.md).
-_FAST_SOLVES = False
+# By default the form is chosen per call from the factor's size and dtype
+# (fast_solves): the fast form for float32 factors up to FAST_SOLVES_MAX_M,
+# substitution otherwise.  On an H100 (train step at batch 8192, both
+# forms within the float64 reference's tolerance, chip_smoke.py phases
+# 5-6; PERF.md) the fast form was 1.29x faster at M=1024, 1.15x at M=2048
+# and no faster at M=4096.  Float64 keeps substitution, the backward-stable
+# oracle.
+# None: chosen per call; True/False: forced (set_fast_solves).
+_FAST_SOLVES: bool | None = None
+FAST_SOLVES_MAX_M = 2048
 # Precision of every product with an explicit triangular inverse (here and
 # in models/posterior.py).  L^-1 has entries up to ~1/sqrt(jitter) that
 # cancel in L^-1 Kmn, so one-pass reduced-precision inputs (bf16, TF32)
@@ -45,15 +49,23 @@ _FAST_SOLVES = False
 INVERSE_PRECISION = jax.lax.Precision.HIGHEST
 
 
-def set_fast_solves(enabled: bool) -> None:
-    """Select the fast-solves form (True) or substitution (False, the
-    default).  Read at trace time: re-jit after changing it."""
+def set_fast_solves(enabled: bool | None) -> None:
+    """Force the fast-solves form on (True) or off (False), or restore the
+    choice by size and dtype (None).  Read at trace time: re-jit after
+    changing it."""
     global _FAST_SOLVES
-    _FAST_SOLVES = bool(enabled)
+    _FAST_SOLVES = None if enabled is None else bool(enabled)
 
 
-def fast_solves() -> bool:
-    return _FAST_SOLVES
+def fast_solves(m: int, dtype) -> bool:
+    """Whether an [..., m, m] factor of ``dtype`` takes the fast form."""
+    if _FAST_SOLVES is not None:
+        return _FAST_SOLVES
+    return jnp.dtype(dtype) == jnp.float32 and m <= FAST_SOLVES_MAX_M
+
+
+def _fast(x: jax.Array) -> bool:
+    return fast_solves(x.shape[-1], x.dtype)
 
 
 def _solve_identity(L: jax.Array, lower: bool) -> jax.Array:
@@ -63,7 +75,7 @@ def _solve_identity(L: jax.Array, lower: bool) -> jax.Array:
 
 def triangular_inverse(L: jax.Array, *, lower: bool = True) -> jax.Array:
     """Explicit inverse of a (batched) triangular matrix."""
-    if lower and _FAST_SOLVES:
+    if lower and _fast(L):
         return _trinv(L)
     return _solve_identity(L, lower)
 
@@ -135,7 +147,7 @@ def whiten_solve(Kmm: jax.Array, Kmn: jax.Array) -> jax.Array:
     Otherwise this is plain cholesky + triangular solve, which is also the
     autodiff oracle the tests check the fast form against.
     """
-    if _FAST_SOLVES and Kmm.shape[:-2] == Kmn.shape[:-2]:
+    if _fast(Kmm) and Kmm.shape[:-2] == Kmn.shape[:-2]:
         return _whiten_solve_fused(Kmm, Kmn)
     return solve_lower(cholesky(Kmm), Kmn)
 
@@ -170,8 +182,8 @@ _whiten_solve_fused.defvjp(_whiten_solve_fused_fwd, _whiten_solve_fused_bwd)
 
 def solve_lower(L: jax.Array, B: jax.Array, *, trans: bool = False) -> jax.Array:
     """L^-1 B (or L^-T B): substitution, or inverse+matmul in the fast form
-    (see set_fast_solves)."""
-    if _FAST_SOLVES:
+    (see fast_solves)."""
+    if _fast(L):
         Linv = triangular_inverse(L)
         op = jnp.swapaxes(Linv, -1, -2) if trans else Linv
         return jnp.matmul(op, B, precision=INVERSE_PRECISION,
@@ -186,7 +198,7 @@ def add_jitter(K: jax.Array, jitter: float) -> jax.Array:
 
 def cholesky(K: jax.Array) -> jax.Array:
     """Lower Cholesky factor of a (batched) SPD matrix."""
-    if _FAST_SOLVES:
+    if _fast(K):
         return _chol_fast_bwd(K)
     return jnp.linalg.cholesky(K)
 

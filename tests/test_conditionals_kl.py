@@ -205,7 +205,7 @@ def test_conditional_fast_solves_matches(rng):
     try:
         m2, v2 = base_conditional(*args, **kw)
     finally:
-        linalg.set_fast_solves(False)
+        linalg.set_fast_solves(None)
     np.testing.assert_allclose(np.asarray(m1), np.asarray(m2), rtol=1e-9,
                                atol=1e-11)
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), rtol=1e-9,

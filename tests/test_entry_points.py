@@ -88,13 +88,46 @@ def test_chip_smoke_reference_matches_package_float64():
 
 def test_chip_smoke_compare_at_tiny_size():
     """Phase 5's comparison at a tiny size: every row within tolerance,
-    every gradient leaf compared."""
+    every gradient leaf and every head cotangent compared."""
     rows = chip_smoke.compare_to_reference(12, 40)
-    names = {r[0] for r in rows}
+    names = {r.name for r in rows}
     assert {"loss", "fmean", "fvar", "amean", "avar", "kl_pred",
             "kl_assign"} <= names
+    assert {f"dloss/d{k}" for k in chip_smoke.MARGINALS} <= names
     assert len([n for n in names if n.startswith("grad")]) == 11
-    assert all(r[4] for r in rows), [r for r in rows if not r[4]]
+    assert all(r.ok for r in rows), [r for r in rows if not r.ok]
+
+
+@pytest.mark.parametrize("side", ["reference", "product"])
+def test_chip_smoke_split_gradient_is_the_gradient(side):
+    """Phase 5's gradient, split at the layer terms, is the loss gradient
+    when the exact terms and cotangent are the side's own (float64)."""
+    fns = {"reference": (chip_smoke.reference_terms,
+                         chip_smoke.reference_head,
+                         chip_smoke.reference_loss),
+           "product": (chip_smoke.product_terms, chip_smoke.product_head,
+                       chip_smoke.product_loss)}
+    terms_fn, head_fn, loss_fn = fns[side]
+    M, N = 10, 24
+    model = chip_smoke.perturb(chip_smoke.build_model(M, jnp.float64))
+    Xn, Yn = chip_smoke.make_data(N)
+    X, Y = jnp.asarray(Xn), jnp.asarray(Yn)
+    z, g = model.draw_noise(jax.random.PRNGKey(0), N, chip_smoke.S,
+                            jnp.float64)
+    exact = terms_fn(model, X)
+    ct = jax.grad(head_fn, argnums=1)(model, exact, Y, z, g)
+    out = chip_smoke._side(terms_fn, head_fn, model, X, Y, z, g, exact, ct)
+    grads = jax.grad(lambda m: loss_fn(m, X, Y, z, g)[0])(model)
+    leaves = jax.tree_util.tree_flatten_with_path(grads)[0]
+    assert len(leaves) == 11
+    for path, leaf in leaves:
+        np.testing.assert_allclose(
+            np.asarray(out["grad" + jax.tree_util.keystr(path)]),
+            np.asarray(leaf), rtol=1e-9, atol=1e-12)
+    for k in chip_smoke.MARGINALS:
+        np.testing.assert_allclose(np.asarray(out[f"dloss/d{k}"]),
+                                   np.asarray(ct[k]), rtol=1e-12,
+                                   atol=1e-14)
 
 
 def test_chip_smoke_precision_probe_on_cpu():

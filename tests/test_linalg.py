@@ -19,7 +19,7 @@ def _spd(rng, M, dtype=np.float32, batch=()):
 @pytest.fixture(autouse=True)
 def _default_solve_form():
     yield
-    linalg.set_fast_solves(False)
+    linalg.set_fast_solves(None)
 
 
 def _close_scaled(got, ref, rtol, atol):
@@ -58,25 +58,46 @@ def test_solve_triangular_matches_scipy(rng, lower, trans, layout, n):
 
 # ------------------------------------------------------ the fast-solves route
 
-def test_fast_solves_switch_selects_the_form(rng):
-    """Substitution is the default; set_fast_solves(True) routes cholesky,
-    triangular_inverse and whiten_solve through the solve-free custom
-    pullbacks, whose jaxprs then carry custom_vjp calls."""
-    K = jnp.asarray(_spd(rng, 8, np.float64))
-    B = jnp.asarray(rng.normal(size=(8, 3)))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fast_solves_switch_selects_the_form(rng, dtype):
+    """By default a small float32 factor takes the fast form and a float64
+    one substitution; set_fast_solves(True/False) forces the form, None
+    restores the choice.  The fast form routes cholesky, triangular_inverse
+    and whiten_solve through the solve-free custom pullbacks, whose jaxprs
+    then carry custom_vjp calls."""
+    K = jnp.asarray(_spd(rng, 8, dtype))
+    B = jnp.asarray(rng.normal(size=(8, 3)).astype(dtype))
 
-    def jaxpr_text():
+    def vjp_calls():
         return str(jax.make_jaxpr(lambda k, b: (
             linalg.cholesky(k), linalg.triangular_inverse(k),
-            linalg.whiten_solve(k, b)))(K, B))
+            linalg.whiten_solve(k, b)))(K, B)).count("custom_vjp_call")
 
-    assert not linalg.fast_solves()
-    assert "custom_vjp_call" not in jaxpr_text()
+    default = dtype == np.float32
+    assert linalg.fast_solves(8, dtype) == default
+    assert vjp_calls() == (3 if default else 0)
     linalg.set_fast_solves(True)
-    assert linalg.fast_solves()
-    assert jaxpr_text().count("custom_vjp_call") == 3
+    assert linalg.fast_solves(8, dtype)
+    assert vjp_calls() == 3
     linalg.set_fast_solves(False)
-    assert "custom_vjp_call" not in jaxpr_text()
+    assert not linalg.fast_solves(8, dtype)
+    assert vjp_calls() == 0
+    linalg.set_fast_solves(None)
+    assert vjp_calls() == (3 if default else 0)
+
+
+@pytest.mark.parametrize("M, dtype, fast", [
+    (1, np.float32, True), (1024, np.float32, True),
+    (linalg.FAST_SOLVES_MAX_M, np.float32, True),
+    (linalg.FAST_SOLVES_MAX_M + 1, np.float32, False),
+    (4096, np.float32, False), (64, np.float64, False),
+    (64, np.float16, False)])
+def test_fast_solves_default_by_size_and_dtype(M, dtype, fast):
+    """The default form follows the factor's size and dtype only."""
+    assert linalg.fast_solves(M, dtype) == fast
+    L = jax.ShapeDtypeStruct((M, M), dtype)
+    jaxpr = str(jax.make_jaxpr(linalg.triangular_inverse)(L))
+    assert ("custom_vjp_call" in jaxpr) == fast
 
 
 def test_fast_solves_routing_parity(rng):

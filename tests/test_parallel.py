@@ -154,7 +154,7 @@ def test_data_parallel_hlo_has_exactly_one_collective(rng):
         Xs, Ys = shard_batch(mesh, X, Y)
         hlo = step_fn.lower(state, Xs, Ys).compile().as_text()
     finally:
-        linalg.set_fast_solves(False)
+        linalg.set_fast_solves(None)
     counts = {}
     for op in ("all-reduce", "all-gather", "all-to-all",
                "collective-permute", "reduce-scatter"):
